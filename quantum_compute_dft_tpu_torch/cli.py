@@ -1,0 +1,171 @@
+"""Command-line interface of the port.
+
+``python -m quantum_compute_dft_tpu_torch {LDA,GGA,B3LYP,HF,PBE} <Molecule>``
+with the console table and summary of the JAX package's CLI
+(quantum_compute_dft_tpu/cli.py): banner, system info, per-cycle table
+(epoch / total energy / dE / d-density / HF exchange), converged summary
+with the energy decomposition, and the per-call XC kernel statistic.
+
+``--device`` defaults to ``cuda``; without a GPU that default is an error,
+and the CPU runs only when asked for with ``--device cpu``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+import torch
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="quantum_compute_dft_tpu_torch",
+        description="Restricted Kohn-Sham DFT (LDA/GGA/B3LYP) in PyTorch "
+        "with a fused CUDA XC kernel.",
+    )
+    p.add_argument("functional", choices=["LDA", "GGA", "B3LYP", "HF", "PBE"],
+                   help="Functional type (GGA == PBE; HF = Hartree-Fock)")
+    p.add_argument("xyzfile", help="Molecule name (e.g. H2O) or path to .xyz")
+    p.add_argument("--molecules-dir",
+                   default=os.environ.get("DFT_MOLECULES_DIR", "./molecules"),
+                   help="Directory with <name>.xyz geometries (default "
+                   "./molecules)")
+    p.add_argument("--grid-level", type=int, default=3,
+                   help="Becke grid level 0-9")
+    p.add_argument("--no-prune", action="store_true",
+                   help="Disable grid pruning")
+    p.add_argument("--max-cycle", type=int, default=200)
+    p.add_argument("--conv-tol-e", type=float, default=1e-8)
+    p.add_argument("--conv-tol-d", type=float, default=1e-6)
+    p.add_argument("--charge", type=int, default=0)
+    p.add_argument(
+        "--xc-impl", choices=["fast", "f64"], default="fast",
+        help="SCF numerics schedule: 'fast' (default: XC on the fused f32 "
+        "kernel every cycle, the candidate verified by f64 cycles, final "
+        "energy in f64) or 'f64' (every cycle in f64)")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="Where to run (default cuda; the CPU only on request)")
+    return p
+
+
+def resolve_molecule(args) -> str:
+    name = (args.xyzfile if args.xyzfile.lower().endswith(".xyz")
+            else args.xyzfile + ".xyz")
+    if os.path.exists(name):
+        return name
+    path = os.path.join(args.molecules_dir, name)
+    if not os.path.exists(path):
+        print(f"Error: {path} not found.")
+        sys.exit(1)
+    return path
+
+
+def _time_xc(xc_fn, device: torch.device, reps: int = 10) -> float:
+    """Mean ms per call: CUDA events on the card, host clock on the CPU."""
+    xc_fn()  # warm-up
+    if device.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            xc_fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        xc_fn()
+    return (time.perf_counter() - t0) / reps * 1000.0
+
+
+def run(argv=None):
+    """Parse, prepare, run the SCF and print the report.  -> (setup,
+    SCFResult, scf_seconds)."""
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        parser.error("--device cuda (the default) needs a CUDA GPU; pass "
+                     "--device cpu to run on the CPU")
+    device = torch.device(args.device)
+    atom_path = resolve_molecule(args)
+    mol_name = os.path.basename(atom_path)
+
+    print(f"=== DFT (PyTorch, {device.type}) | functional: {args.functional}"
+          f" | molecule: {mol_name} ===")
+    print("Building host data (basis, integrals, grid)...")
+
+    from quantum_compute_dft_tpu_torch import kohn_sham
+    from quantum_compute_dft_tpu_torch.engine.fused_xc import xc_step_fused
+    from quantum_compute_dft_tpu_torch.engine.xc_engine import xc_step
+    from quantum_compute_dft_tpu_torch.mol import from_xyz_file
+    from quantum_compute_dft_tpu_torch.scf.driver import scf_host
+
+    mol = from_xyz_file(atom_path, charge=args.charge)
+    setup = kohn_sham.prepare(mol, args.functional,
+                              grid_level=args.grid_level,
+                              prune=not args.no_prune, device=device)
+    print(f"System info: NAO={setup.nao}  grid points={setup.ngrid}  "
+          f"occupied={setup.nocc}  (build {setup.build_time:.2f}s)")
+
+    print("\nSCF started")
+    print("-" * 80)
+    print(f"{'epoch':>5} {'total energy':>18} {'dE':>14} {'d-density':>14} "
+          f"{'HF_Ex':>12}")
+    print("-" * 80)
+
+    def cb(cycle, eb, de, dnorm):
+        print(f"{cycle + 1:5d} {eb.e_tot:18.8f} {de:14.6e} {dnorm:14.6e} "
+              f"{eb.e_ex_hf:12.6f}")
+
+    t_start = time.time()
+    res = scf_host(setup.sys, setup.functional, callback=cb,
+                   max_cycle=args.max_cycle, conv_tol_e=args.conv_tol_e,
+                   conv_tol_d=args.conv_tol_d, xc_impl=args.xc_impl)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    total_time = time.time() - t_start
+
+    # standalone XC statistic of the engine that ran the SCF's cycles
+    s = setup.sys
+    if args.xc_impl == "fast":
+        xc_label = "fused f32 CUDA" if device.type == "cuda" else \
+            "fused f32 plain (cpu)"
+        xc_fn = lambda: xc_step_fused(  # noqa: E731
+            setup.functional, res.dm, s.ao, s.weights, s.ao_grad)
+    else:
+        xc_label = "f64"
+        xc_fn = lambda: xc_step(  # noqa: E731
+            setup.functional, res.dm, s.ao, s.weights, s.ao_grad)
+    xc_ms = _time_xc(xc_fn, device)
+
+    eb = res.energy
+    print("-" * 80)
+    if res.converged:
+        print(f"Converged in {res.n_iter} cycles")
+    else:
+        print("SCF did not converge")
+    print(f"Total energy : {res.e_tot:.8f} Ha")
+    print(f"  E_one      : {eb.e_one:.8f} Ha")
+    print(f"  E_coul     : {eb.e_coul:.8f} Ha")
+    print(f"  E_nuc      : {s.e_nuc:.8f} Ha")
+    print(f"  E_xc       : {eb.e_xc:.8f} Ha")
+    if setup.functional.hyb_coeff:
+        print(f"  E_ex_hf    : {eb.e_ex_hf:.8f} Ha")
+    print(f"SCF time     : {total_time:.4f} s")
+    print("-" * 80)
+    print("Kernel statistics (avg per call):")
+    print(f"  XC(Exc+Vxc): {xc_ms:.4f} ms  [{xc_label} engine]")
+    print("-" * 80)
+    return setup, res, total_time
+
+
+def main(argv=None) -> int:
+    _, res, _ = run(argv)
+    return 0 if res.converged else 2
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,420 @@
+"""Restricted Kohn-Sham SCF driver, torch f64.
+
+Port of the main-path subset of ``quantum_compute_dft_tpu/scf/driver.py``:
+the same Fock assembly F = Hcore + J + V_xc - 0.5 c_hf K, the same energy
+decomposition E_one/E_coul/E_xc/E_ex_hf/E_nuc, the same convergence rule
+(|dE| < 1e-8 and ||dD||_F < 1e-6 within 200 cycles), the SAD guess, the
+level-shift controller and the charge-sloshing damping guard.
+
+One host loop, :func:`scf_host`, with two schedules:
+  * ``xc_impl='f64'`` -- every cycle in f64;
+  * ``xc_impl='fast'`` (the CLI default) -- the in-core case of the JAX
+    package's ``scf_host_staged(xc_impl='fast')``: each cycle builds XC
+    with the f32 CUDA kernel (engine/fused_xc.py) and J/K in f64; a
+    candidate fixed point is then verified by plain f64 cycles, and the
+    reported energy is one f64 ``energy_of_dm``.
+
+The generalized eigenproblem F C = S C e is solved by symmetric
+orthogonalization X = S^(-1/2) and torch.linalg.eigh.  Every branch the
+JAX package takes only on the TPU (sign-projector densities, Newton-Schulz
+polishing, the 1e-8 DIIS threshold) takes its CPU side here on both
+devices: the card's f64 eigh is native.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import weakref
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from quantum_compute_dft_tpu_torch.engine.coulomb import (
+    coulomb_full,
+    exchange_full,
+)
+from quantum_compute_dft_tpu_torch.engine.xc_engine import xc_energy, xc_step
+from quantum_compute_dft_tpu_torch.scf.diis import (
+    DIISState,
+    diis_init,
+    diis_update,
+)
+from quantum_compute_dft_tpu_torch.xc.functionals import Functional
+
+CONV_TOL_E = 1e-8
+CONV_TOL_D = 1e-6
+MAX_CYCLE = 200
+
+# Oscillation guard: a half-step in the density while ||dD|| is large and
+# not decreasing breaks a charge-sloshing 2-cycle; the fixed point is
+# unchanged (see the JAX package's DAMP_* note).
+DAMP_MIN_DNORM = 1.0
+DAMP_RATIO = 0.9
+
+# Level shifting on stall (see the JAX package's LEVEL_SHIFT note): a
+# constant virtual-orbital shift F <- F + sigma (S - 1/2 S D S) engages
+# when ||dD|| fails to improve by 10% for SHIFT_STALL cycles, escalates on
+# no progress, and releases below SHIFT_RELEASE.
+LEVEL_SHIFT = 0.5       # Eh; initial sigma
+LEVEL_SHIFT_MAX = 4.0
+SHIFT_STALL = 8         # non-improving cycles before (re-)engaging
+SHIFT_MIN_DNORM = 1e-4  # below this DIIS is polishing; never engage
+SHIFT_RELEASE = 1e-3    # engaged + ||dD|| below this -> hand back to DIIS
+# 'fast' schedule: ||dD|| below the criterion for this many straight
+# cycles hands the candidate to the f64 verify step without waiting for
+# the |dE| test, whose f32 quantization makes it a lottery
+FAST_DN_STREAK = 8
+
+
+def _level_shift(f, dm, s, shift: float):
+    """F + shift * S (I - 1/2 D S): moves virtuals up by `shift` Eh,
+    fixed point unchanged."""
+    if shift == 0.0:
+        return f
+    return f + shift * (s - 0.5 * s @ dm @ s)
+
+
+class _ShiftController:
+    """Host-side stall detector driving the level shift."""
+
+    def __init__(self, nao: int, device):
+        self.nao = nao
+        self.device = device
+        self.shift = 0.0
+        self._sigma = LEVEL_SHIFT  # (re-)engage magnitude
+        self._dn_best = float("inf")
+        self._stall = 0
+        self.engaged_at = None  # cycle index, for tests/logs
+
+    def _fresh(self) -> DIISState:
+        return diis_init(self.nao, device=self.device)
+
+    def update(self, cycle: int, dnorm: float):
+        """Feed one cycle's ||dD||; returns a fresh DIIS state when the
+        shift engages/escalates/releases (the caller must reset its
+        history), else None."""
+        if self.shift > 0.0:
+            if dnorm < SHIFT_RELEASE:
+                self.shift = 0.0
+                self._stall = 0
+                self._dn_best = dnorm
+                return self._fresh()
+            if dnorm < self._dn_best:
+                self._dn_best = dnorm
+                self._stall = 0
+                return None
+            self._stall += 1
+            if self._stall >= SHIFT_STALL:
+                self._sigma = min(2.0 * self._sigma, LEVEL_SHIFT_MAX)
+                self.shift = self._sigma
+                self._stall = 0
+                self._dn_best = float("inf")
+                return self._fresh()
+            return None
+        if dnorm < 0.9 * self._dn_best:
+            self._dn_best = dnorm
+            self._stall = 0
+            return None
+        self._stall += 1
+        if self._stall >= SHIFT_STALL and dnorm > SHIFT_MIN_DNORM:
+            self.shift = self._sigma
+            if self.engaged_at is None:
+                self.engaged_at = cycle
+            self._stall = 0
+            self._dn_best = float("inf")
+            return self._fresh()
+        return None
+
+
+def _damp(dm_new, dm_old, dnorm: float, dnorm_prev: float):
+    """Half step when the SCF charge-sloshes (see DAMP_* above)."""
+    if dnorm > DAMP_MIN_DNORM and dnorm >= DAMP_RATIO * dnorm_prev:
+        return 0.5 * (dm_new + dm_old)
+    return dm_new
+
+
+def s_inv_sqrt(s: torch.Tensor, lindep: float = 1e-12) -> torch.Tensor:
+    """Symmetric (Lowdin) orthogonalization S^(-1/2), linear-dependence
+    safe (eigh only: the Newton-Schulz polish of the JAX package repairs
+    the TPU's f32-quality eigh and is not needed here)."""
+    w, v = torch.linalg.eigh(s)
+    keep = w > lindep
+    inv_sqrt = torch.where(keep, 1.0 / torch.sqrt(torch.where(keep, w, 1.0)),
+                           0.0)
+    return (v * inv_sqrt) @ v.T
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SCFSystem:
+    """Static per-molecule data for the SCF loop (f64 tensors on one
+    device).  Identity-hashed: the packed-plane cache is keyed by it."""
+
+    hcore: torch.Tensor
+    s: torch.Tensor
+    x: torch.Tensor            # S^(-1/2)
+    eri: torch.Tensor          # (nao,)*4 in-core ERIs
+    ao: torch.Tensor           # (ngrid, nao)
+    weights: torch.Tensor      # (ngrid,)
+    ao_grad: torch.Tensor | None   # (3, ngrid, nao) or None
+    e_nuc: float
+    nocc: int
+    # singly-occupied orbital count (fractional-occupation RKS for
+    # odd-electron systems)
+    nopen: int = 0
+    # SAD initial-guess density (diag of atomic occupations); None -> Hcore
+    dm_sad: torch.Tensor | None = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.hcore.device
+
+
+class EnergyBreakdown(NamedTuple):
+    e_tot: float
+    e_one: float
+    e_coul: float
+    e_xc: float
+    e_ex_hf: float
+
+
+def make_system(hcore, s, eri, ao, weights, ao_grad, e_nuc, nocc,
+                sad_occ=None, nopen=0, device="cpu") -> SCFSystem:
+    """Upload the setup arrays (numpy or tensors) as f64 on `device`."""
+    def t(a):
+        if a is None:
+            return None
+        if not isinstance(a, torch.Tensor):
+            a = torch.from_numpy(np.array(a, dtype=np.float64))
+        return a.to(dtype=torch.float64, device=device)
+
+    s_t = t(s)
+    return SCFSystem(
+        hcore=t(hcore), s=s_t, x=s_inv_sqrt(s_t), eri=t(eri), ao=t(ao),
+        weights=t(weights), ao_grad=t(ao_grad), e_nuc=float(e_nuc),
+        nocc=int(nocc), nopen=int(nopen),
+        dm_sad=None if sad_occ is None else torch.diag(t(sad_occ)),
+    )
+
+
+def _density(x, f, nocc: int, nopen: int = 0):
+    """Solve F C = S C e via the orthogonal basis; D = 2 C_occ C_occ^T
+    (+ the singly-occupied HOMO for odd-electron systems, nopen=1)."""
+    fp = x.T @ f @ x
+    _, cp = torch.linalg.eigh(fp)
+    c = x @ cp
+    cocc = c[:, :nocc]
+    dm = 2.0 * cocc @ cocc.T
+    if nopen:
+        homo = c[:, nocc:nocc + nopen]
+        dm = dm + homo @ homo.T
+    return dm
+
+
+def _density_sanity(sys: SCFSystem, dm_prev, dm_new):
+    """N-representability guard on a fresh density: trace(D S) = nelec and
+    ||S D||_F <= sqrt(2 nelec).  When violated, keep the previous density
+    and return a residual of 1e3 so the cycle cannot count as converged.
+    Returns (dm, 0.0) when sane."""
+    nelec = 2 * sys.nocc + sys.nopen
+    tr_s = torch.sum(dm_new * sys.s.T)
+    sd = sys.s @ dm_new
+    nrm = torch.sqrt(torch.abs(torch.sum(sd * sd.T)))
+    sane = ((torch.abs(tr_s - nelec) < 0.5)
+            & (nrm < (2.0 * nelec) ** 0.5 + 1.0)
+            & torch.all(torch.isfinite(dm_new)))
+    return (torch.where(sane, dm_new, dm_prev),
+            torch.where(sane, 0.0, 1e3).to(dm_new.dtype))
+
+
+# per-system packed f32 planes for the fused XC kernel: the f32 transpose
+# of the AO planes happens once per SCFSystem, not once per cycle
+_PACK_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _packed_for(sys: SCFSystem, needs_grad: bool):
+    from quantum_compute_dft_tpu_torch.engine.fused_xc import pack_inputs
+
+    per_sys = _PACK_CACHE.setdefault(sys, {})
+    ent = per_sys.get(needs_grad)
+    if ent is None:
+        ent = pack_inputs(sys.ao, sys.weights, sys.ao_grad,
+                          needs_grad=needs_grad)
+        per_sys[needs_grad] = ent
+    return ent
+
+
+def _fused_xc(sys: SCFSystem, functional: Functional, dm):
+    from quantum_compute_dft_tpu_torch.engine.fused_xc import fused_xc
+
+    aot, wt, grads = _packed_for(sys, functional.needs_grad)
+    return fused_xc(functional, dm, aot, wt, grads, sys.hcore.shape[0])
+
+
+def _build_j(sys: SCFSystem, dm):
+    return coulomb_full(sys.eri, dm)
+
+
+def _build_k(sys: SCFSystem, dm):
+    return exchange_full(sys.eri, dm)
+
+
+def _energies(dm_new, sys: SCFSystem, j, k, e_xc, c_hf: float):
+    """Stacked [e_tot, e_one, e_coul, e_xc, e_ex] (one tensor, so the host
+    fetches them in one transfer)."""
+    e_one = torch.sum(dm_new * sys.hcore)
+    e_coul = 0.5 * torch.sum(dm_new * j)
+    e_ex = (-0.25 * c_hf * torch.sum(dm_new * k) if k is not None
+            else torch.zeros_like(e_one))
+    e_tot = e_one + e_coul + e_xc + e_ex + sys.e_nuc
+    return torch.stack([e_tot, e_one, e_coul, e_xc, e_ex])
+
+
+def _cycle_tail(sys: SCFSystem, functional: Functional, dm, diis, e_xc,
+                vxc, shift: float):
+    """J, K, Fock, CDIIS, level shift, eigh density, energies."""
+    j = _build_j(sys, dm)
+    c_hf = functional.hyb_coeff
+    k = None
+    f = sys.hcore + j + vxc
+    if c_hf != 0.0:
+        k = _build_k(sys, dm)
+        f = f - 0.5 * c_hf * k
+    diis, f = diis_update(diis, f, dm, sys.s, sys.x)
+    f = _level_shift(f, dm, sys.s, shift)
+    dm_new = _density(sys.x, f, sys.nocc, sys.nopen)
+    return dm_new, diis, lambda d: _energies(d, sys, j, k, e_xc, c_hf)
+
+
+def scf_iteration(sys: SCFSystem, functional: Functional, dm, diis,
+                  shift: float = 0.0):
+    """One f64 SCF cycle -> (dm_new, diis, energies [5], dnorm)."""
+    e_xc, vxc = xc_step(functional, dm, sys.ao, sys.weights, sys.ao_grad)
+    dm_new, diis, energies = _cycle_tail(sys, functional, dm, diis, e_xc,
+                                         vxc, shift)
+    return dm_new, diis, energies(dm_new), torch.linalg.norm(dm_new - dm)
+
+
+def scf_iteration_fast(sys: SCFSystem, functional: Functional, dm, diis,
+                       shift: float = 0.0):
+    """One kernel-phase cycle of the 'fast' schedule: f32 XC from the
+    fused kernel, then the f64 tail, with the density sanity guard
+    (scf_host_staged's cycle).  -> (dm_new, diis, energies [5], dnorm)."""
+    e_xc, vxc = _fused_xc(sys, functional, dm)
+    dm_new, diis, energies = _cycle_tail(sys, functional, dm, diis, e_xc,
+                                         vxc, shift)
+    dm_new, insane = _density_sanity(sys, dm, dm_new)
+    dnorm = torch.linalg.norm(dm_new - dm) + insane
+    return dm_new, diis, energies(dm_new), dnorm
+
+
+def energy_of_dm(sys: SCFSystem, functional: Functional,
+                 dm) -> EnergyBreakdown:
+    """Self-consistent f64 total energy at a given density (every term
+    from THIS dm: variationally stationary near the fixed point)."""
+    j = _build_j(sys, dm)
+    e_xc = xc_energy(functional, dm, sys.ao, sys.weights, sys.ao_grad)
+    c_hf = functional.hyb_coeff
+    k = _build_k(sys, dm) if c_hf != 0.0 else None
+    return EnergyBreakdown(*_energies(dm, sys, j, k, e_xc, c_hf).tolist())
+
+
+def initial_guess(sys: SCFSystem) -> torch.Tensor:
+    """SAD when available, else the Hcore guess."""
+    if sys.dm_sad is not None:
+        return sys.dm_sad
+    return _density(sys.x, sys.hcore, sys.nocc, sys.nopen)
+
+
+@dataclasses.dataclass
+class SCFResult:
+    converged: bool
+    n_iter: int
+    dm: torch.Tensor
+    energy: EnergyBreakdown
+    e_tot: float
+    level_shift: float = 0.0
+    shift_engaged_at: int | None = None
+    # 'fast' schedule: cycles whose XC ran on the fused f32 kernel, and
+    # the f64 verify cycles after them
+    fast_cycles: int = 0
+    verify_cycles: int = 0
+
+
+def scf_host(
+    sys: SCFSystem,
+    functional: Functional,
+    callback: Callable | None = None,
+    max_cycle: int = MAX_CYCLE,
+    conv_tol_e: float = CONV_TOL_E,
+    conv_tol_d: float = CONV_TOL_D,
+    dm0=None,
+    xc_impl: str = "f64",
+) -> SCFResult:
+    """Host SCF loop; callback(cycle, eb, dE, dnorm) after each cycle.
+
+    xc_impl='f64': every cycle is scf_iteration, as the JAX package's
+    scf_host (the result carries the converged cycle's energies).
+
+    xc_impl='fast' (the in-core scf_host_staged(xc_impl='fast')): kernel-
+    phase cycles (scf_iteration_fast) until the convergence rule holds, or
+    ||dD|| has met it for FAST_DN_STREAK straight cycles.  An all-f32 fixed
+    point can be SPURIOUS for heavy elements (steep Fock scales push the
+    f32 rounding floor above the convergence window: H2Se -1.2e-4 and HBr
+    +2.3e-4 Eh in the JAX package), so the candidate is verified by f64
+    cycles from it, with a fresh DIIS history, until the rule holds; the
+    reported energy is one f64 energy_of_dm of the returned density.  The
+    cycle count and the callback span both phases."""
+    if xc_impl not in ("f64", "fast"):
+        raise ValueError(f"xc_impl must be 'f64' or 'fast', not {xc_impl!r}")
+    dm = initial_guess(sys) if dm0 is None else torch.as_tensor(
+        dm0, dtype=torch.float64, device=sys.device)
+    nao = dm.shape[0]
+    diis = diis_init(nao, device=sys.device)
+    shiftc = _ShiftController(nao, sys.device)
+    e_old = 0.0
+    dnorm_prev = float("inf")
+    kernel_phase = xc_impl == "fast"   # then f64 verify cycles
+    dn_streak = 0
+    n_fast = 0
+    for cycle in range(max_cycle):
+        step = scf_iteration_fast if kernel_phase else scf_iteration
+        dm_new, diis, en, dn_t = step(sys, functional, dm, diis,
+                                      shift=shiftc.shift)
+        n_fast += kernel_phase
+        stat = torch.cat([en, dn_t[None]]).tolist()  # one fetch per cycle
+        eb, dnorm = EnergyBreakdown(*stat[:5]), stat[5]
+        de = eb.e_tot - e_old
+        if callback:
+            callback(cycle, eb, de, dnorm)
+        converged = abs(de) < conv_tol_e and dnorm < conv_tol_d
+        if kernel_phase and not converged:
+            dn_streak = dn_streak + 1 if dnorm < conv_tol_d else 0
+            converged = dn_streak >= FAST_DN_STREAK
+        if converged and not kernel_phase:
+            if xc_impl == "fast":
+                eb = energy_of_dm(sys, functional, dm_new)
+            return SCFResult(True, cycle + 1, dm_new, eb, eb.e_tot,
+                             level_shift=shiftc.shift,
+                             shift_engaged_at=shiftc.engaged_at,
+                             fast_cycles=n_fast,
+                             verify_cycles=cycle + 1 - n_fast)
+        fresh = shiftc.update(cycle, dnorm)
+        if fresh is not None:
+            diis = fresh
+        if converged:
+            # candidate fixed point: verify it with f64 cycles and a fresh
+            # history (the f32-floor history is noise)
+            kernel_phase = False
+            diis = diis_init(nao, device=sys.device)
+            dm = dm_new
+        else:
+            dm = _damp(dm_new, dm, dnorm, dnorm_prev)
+        dnorm_prev = dnorm
+        e_old = eb.e_tot
+    eb = (energy_of_dm(sys, functional, dm) if max_cycle > 0
+          else EnergyBreakdown(*(float("nan"),) * 5))
+    return SCFResult(False, max_cycle, dm, eb, eb.e_tot,
+                     level_shift=shiftc.shift,
+                     shift_engaged_at=shiftc.engaged_at,
+                     fast_cycles=n_fast, verify_cycles=max_cycle - n_fast)

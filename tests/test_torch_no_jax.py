@@ -1,0 +1,67 @@
+"""The PyTorch port stands alone: no JAX and no JAX-package import.
+
+A subprocess with JAX and the JAX package blocked in sys.modules imports
+every module of the port; a source scan finds no import of either.
+"""
+
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import torch
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = "quantum_compute_dft_tpu_torch"
+
+
+def _port_modules():
+    import quantum_compute_dft_tpu_torch as pkg
+
+    names = [PKG]
+    for info in pkgutil.walk_packages(pkg.__path__, PKG + "."):
+        if not info.name.endswith("__main__"):
+            names.append(info.name)
+    return names
+
+
+def test_port_imports_without_jax():
+    mods = _port_modules()
+    assert len(mods) > 20, mods
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['quantum_compute_dft_tpu'] = None\n"
+        "import importlib\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert not any(k == 'jax' or k.startswith('jax.') for k, v in "
+        "sys.modules.items() if v is not None)\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+_BAD = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+quantum_compute_dft_tpu\b"
+    r"(?!_torch)|from\s+quantum_compute_dft_tpu\b(?!_torch))", re.M)
+
+
+def test_source_scan_finds_no_jax_import():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _, names in os.walk(os.path.join(ROOT, PKG)):
+        files += [os.path.join(base, n) for n in names if n.endswith(".py")]
+    assert len(files) > 20
+    bad = []
+    for path in files:
+        with open(path) as f:
+            for m in _BAD.finditer(f.read()):
+                bad.append((os.path.relpath(path, ROOT), m.group(0).strip()))
+    assert not bad, bad
