@@ -46,6 +46,15 @@ def build_parser() -> argparse.ArgumentParser:
         help="SCF numerics schedule: 'fast' (default: XC on the fused f32 "
         "kernel every cycle, the candidate verified by f64 cycles, final "
         "energy in f64) or 'f64' (every cycle in f64)")
+    p.add_argument(
+        "--density-fit", choices=["auto", "on", "off"], default="auto",
+        help="J/K via the pivoted-Cholesky density-fitted ERIs (auto: on "
+        "above nao 64, in-core ERIs at or below it)")
+    p.add_argument(
+        "--df-aux", choices=["parity"], default="parity",
+        help="DF factorization: 'parity' = pivoted-Cholesky ERI vectors, "
+        "tol 1e-7 (guaranteed elementwise ERI error, ~1e-6 Eh SCF parity); "
+        "the RI auxiliary tiers of the JAX package are not ported yet")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="Where to run (default cuda; the CPU only on request)")
     return p
@@ -104,11 +113,18 @@ def run(argv=None):
     from quantum_compute_dft_tpu_torch.scf.driver import scf_host
 
     mol = from_xyz_file(atom_path, charge=args.charge)
+    density_fit = {"auto": None, "on": True, "off": False}[args.density_fit]
     setup = kohn_sham.prepare(mol, args.functional,
                               grid_level=args.grid_level,
-                              prune=not args.no_prune, device=device)
+                              prune=not args.no_prune,
+                              density_fit=density_fit, df_aux=args.df_aux,
+                              device=device)
+    jk = ("in-core ERIs" if setup.sys.eri is not None else
+          f"Cholesky DF, rank {setup.sys.df_bq.shape[0]}, "
+          f"{setup.df_time:.2f}s")
     print(f"System info: NAO={setup.nao}  grid points={setup.ngrid}  "
-          f"occupied={setup.nocc}  (build {setup.build_time:.2f}s)")
+          f"occupied={setup.nocc}  J/K: {jk}  (build "
+          f"{setup.build_time:.2f}s)")
 
     print("\nSCF started")
     print("-" * 80)

@@ -42,9 +42,15 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-MAX_NPAD = 64     # shared-memory layout limit of xc_point_kernel
+# largest npad checked on the card (chip_smoke.py phase 3: the 117-atom
+# molecule, nao 377); the tiled kernels have no layout limit of their own
+MAX_NPAD = 384
 POINT_BLOCK = 128
-CHUNK = 1024      # grid points per V partial; gpad is a multiple of it
+CHUNK = 1024      # gpad is a multiple of it (the V chunk is too)
+TILE = 64         # output tile edge of the kernels' two products
+# target (output tiles x grid chunks) blocks of the V partial kernel: the
+# chunk grows with npad so that the partial buffer stays ~V_BLOCKS * 16 KB
+V_BLOCKS = 2048
 
 # kernel launches, counted by the wrapper where it launches (K1: GGA body,
 # K2: LDA body)
@@ -100,7 +106,7 @@ def _lib():
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused_xc.argtypes = [i, i, i, i] + [p] * 12
+        lib.fused_xc.argtypes = [i, i, i, i, i] + [p] * 12
         lib.fused_xc.restype = i
         lib.xc_functional_eval.argtypes = [i, i] + [p] * 6
         lib.xc_functional_eval.restype = i
@@ -206,14 +212,22 @@ def fused_xc_reference(functional: Functional, dm, aot, wt, grads, n: int):
 # ---------------------------------------------------------------------------
 
 
+def v_chunk(npad: int, gpad: int) -> int:
+    """Grid points per V partial: a multiple of CHUNK chosen so that
+    output tiles x chunks stays near V_BLOCKS (bounded scratch)."""
+    ntile = -(-npad // TILE)
+    nchunk = max(1, min(gpad // CHUNK, V_BLOCKS // (ntile * ntile)))
+    return _round_up(-(-gpad // nchunk), CHUNK)
+
+
 def _check_inputs(functional, dm, aot, wt, grads, n):
     npad, gpad = aot.shape
     if npad > MAX_NPAD:
         raise ValueError(
-            f"fused XC kernel supports npad <= {MAX_NPAD} (nao <= 64, the "
-            f"in-core path); got npad {npad}.  Density-fitting-scale nao "
-            "needs the tiled kernel of a later port.")
-    if not (1 <= n <= npad) or gpad % CHUNK or tuple(dm.shape) != (n, n):
+            f"fused XC kernel is checked up to npad <= {MAX_NPAD} (nao 377, "
+            f"the largest molecule of the repo); got npad {npad}")
+    if (not (1 <= n <= npad) or npad % 8 or gpad % CHUNK
+            or tuple(dm.shape) != (n, n)):
         raise ValueError(f"bad shapes: dm {tuple(dm.shape)}, n {n}, "
                          f"aot {tuple(aot.shape)}")
     planes = [aot, wt] + ([grads] if functional.needs_grad else [])
@@ -233,10 +247,11 @@ def _launch(functional: Functional, dm, aot, wt, grads, n: int):
     dev = aot.device
     f32 = torch.float32
     dm_p = _pad_dm(dm, npad)
-    bt = torch.empty((npad, gpad), dtype=f32, device=dev)
+    chunk = v_chunk(npad, gpad)
+    ldv = _round_up(npad, TILE)
+    phi_bt = torch.empty((npad, gpad), dtype=f32, device=dev)
     e_part = torch.empty(gpad // POINT_BLOCK, dtype=f32, device=dev)
-    v_part = torch.empty((gpad // CHUNK, MAX_NPAD, MAX_NPAD), dtype=f32,
-                         device=dev)
+    v_part = torch.empty((-(-gpad // chunk), ldv, ldv), dtype=f32, device=dev)
     v_out = torch.empty((n, n), dtype=f32, device=dev)
     e_out = torch.empty(1, dtype=f32, device=dev)
     gx = gy = gz = None
@@ -244,8 +259,8 @@ def _launch(functional: Functional, dm, aot, wt, grads, n: int):
         gx, gy, gz = grads[0], grads[1], grads[2]
     with torch.cuda.device(dev):
         code = _lib().fused_xc(
-            functional.kind, n, npad, gpad, _ptr(dm_p), _ptr(aot), _ptr(gx),
-            _ptr(gy), _ptr(gz), _ptr(wt), _ptr(bt), _ptr(e_part),
+            functional.kind, n, npad, gpad, chunk, _ptr(dm_p), _ptr(aot),
+            _ptr(gx), _ptr(gy), _ptr(gz), _ptr(wt), _ptr(phi_bt), _ptr(e_part),
             _ptr(v_part), _ptr(v_out), _ptr(e_out), _stream())
     _check(code, "fused_xc launch")
     LAUNCHES["K1" if functional.needs_grad else "K2"] += 1

@@ -48,10 +48,17 @@ def becke_weights(
     return w_own / torch.sum(p_cell, dim=1)
 
 
-def becke_weights_chunked(coords, atom_xyz, atom_idx, radii, chunk=65536,
+def becke_weights_chunked(coords, atom_xyz, atom_idx, radii, chunk=None,
                           device="cpu") -> np.ndarray:
-    """Host-driven chunking over the grid (bounds the (ngrid, natm^2)
-    intermediate); numpy in, numpy out, computed on `device`."""
+    """Host-driven chunking over the grid (bounds the (chunk, natm, natm)
+    intermediates); numpy in, numpy out, computed on `device`.  The
+    default chunk is 65,536 points, cut for large molecules so that one
+    intermediate stays at 2^27 f64 elements (1 GiB; 9,805 points at 117
+    atoms)."""
+    if chunk is None:
+        natm = len(atom_xyz)
+        chunk = min(65536, max(1024, 2**27 // (natm * natm)))
+
     def t(x, dtype=torch.float64):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 

@@ -1,0 +1,140 @@
+"""Pivoted Cholesky decomposition of the two-electron integral matrix.
+
+Port of ``quantum_compute_dft_tpu/integrals/cholesky.py``: the ERI matrix
+over unique AO pairs, W[(ij),(kl)] = (ij|kl), is symmetric positive
+semi-definite, so a pivoted Cholesky factorization W ~= L L^T truncated at
+residual-diagonal threshold `tol` guarantees
+
+    |(ij|kl) - sum_r L[ij,r] L[kl,r]|  <=  sqrt(d_ij d_kl)  <=  tol
+
+element-wise.  Blocked pivot panels: each outer iteration picks the
+`block` largest residual diagonals, evaluates their ERI columns on the
+device with the in-core path's quartet blocks (integrals/two_electron.py),
+and downdates on the host in exact f64 numpy.  Total integral work is
+O(npair * rank) quartets instead of O(npair^2).
+
+The factor unpacks to a (nao, nao, rank) tensor that the density-fitted
+J/K builders (integrals/density_fitting.py) take with an identity metric:
+
+    J = sum_r L[:,:,r] (L[:,:,r] . D),    K = sum_r L_r D L_r^T.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from quantum_compute_dft_tpu_torch.basis.basis_set import BasisSet
+from quantum_compute_dft_tpu_torch.integrals.two_electron import (
+    _quartet_kernel,
+    diag_runner,
+    pair_data,
+)
+
+# pivots per panel and pairs per quartet block: the JAX package's device
+# block
+BLOCK = 128
+
+
+def cholesky_eri_vectors(
+    basis: BasisSet,
+    tol: float = 1e-7,
+    block: int = BLOCK,
+    max_rank: int | None = None,
+    device="cpu",
+    verbose: bool = False,
+) -> torch.Tensor:
+    """-> L (nao, nao, rank) f64 spherical-AO Cholesky vectors on `device`
+    with max residual diagonal < tol (guaranteed elementwise ERI error)."""
+    n = basis.ncart
+    lmax = int(basis.cart_powers.max())
+    iu, ju, p_all, P_all, et_all, cw = pair_data(basis, device)
+    npair = len(iu)
+    run_block = _quartet_kernel(2 * lmax, device)
+    run_diag = diag_runner(2 * lmax, device)
+
+    # residual diagonal d_ab = (ab|ab) over ALL pairs; every block is
+    # queued on the device before the one host transfer
+    d_full = torch.cat([
+        run_diag(p_all[s:s + block], P_all[s:s + block],
+                 et_all[s:s + block], cw[s:s + block])
+        for s in range(0, npair, block)
+    ]).cpu().numpy()
+    d_full = np.maximum(d_full, 0.0)
+
+    # Schwarz screening: |(ab|cd)| <= sqrt(d_ab d_cd) <= sqrt(d_ab d_max),
+    # so pairs with d_ab <= tol^2 / d_max contribute < tol to every ERI
+    # element and are dropped from the factorization (their L rows are
+    # exactly zero)
+    dmax = d_full.max() if npair else 0.0
+    keep = d_full > (tol * tol) / max(dmax, 1e-300)
+    sel = np.nonzero(keep)[0]
+    iu, ju = iu[sel], ju[sel]
+    d = d_full[sel]
+    npair = len(sel)
+    sel_t = torch.as_tensor(sel, device=device)
+    p_s, P_s, et_s, cw_s = (p_all[sel_t], P_all[sel_t], et_all[sel_t],
+                            cw[sel_t])
+    if verbose:
+        print(f"  cholesky: {npair}/{len(d_full)} pairs survive Schwarz "
+              f"screening at tol={tol:g}")
+
+    if max_rank is None:
+        max_rank = min(npair, 16 * basis.nao + 64)
+
+    def run_panel(piv):
+        """ERI columns W[:, piv] for one pivot block -> (npair, k) numpy.
+        All row blocks are queued on the device first; the panel crosses
+        to the host in one transfer (one synchronization per panel)."""
+        pt = torch.as_tensor(piv, device=device)
+        pb, Pb, eb, cb = p_s[pt], P_s[pt], et_s[pt], cw_s[pt]
+        return torch.cat([
+            run_block(p_s[s:s + block], P_s[s:s + block],
+                      et_s[s:s + block], cw_s[s:s + block], pb, Pb, eb, cb)
+            for s in range(0, npair, block)
+        ]).cpu().numpy()
+
+    l_cols: list[np.ndarray] = []
+    it = 0
+    while True:
+        dmax = d.max() if npair else 0.0
+        if dmax < tol or len(l_cols) >= max_rank:
+            break
+        # pivot block: the `block` largest residual diagonals
+        cand = np.argsort(-d)[:block]
+        piv = cand[d[cand] > tol]
+        k = len(piv)
+        panel = run_panel(piv)
+        if l_cols:
+            lmat = np.concatenate(l_cols, axis=1)
+            panel -= lmat @ lmat[piv].T
+        # in-panel pivoted factorization (host, exact f64)
+        for c in range(k):
+            if len(l_cols) >= max_rank:
+                break
+            djj = panel[piv[c], c]
+            if djj < tol:
+                continue  # downdated below threshold by earlier columns
+            lcol = panel[:, c] / np.sqrt(djj)
+            l_cols.append(lcol[:, None])
+            if c + 1 < k:
+                panel[:, c + 1:] -= lcol[:, None] * lcol[piv[c + 1:]][None, :]
+            d -= lcol * lcol
+        d = np.maximum(d, 0.0)
+        it += 1
+        if verbose:
+            print(f"  cholesky panel {it}: rank={len(l_cols)}, "
+                  f"max residual diag={d.max():.3e}")
+
+    rank = len(l_cols)
+    l_pair = (np.concatenate(l_cols, axis=1) if rank
+              else np.zeros((npair, 0)))
+
+    # unpack (pair, rank) -> symmetric (ncart, ncart, rank) -> spherical
+    full = np.zeros((n, n, rank))
+    full[iu, ju] = l_pair
+    full[ju, iu] = l_pair
+    c2s = basis.c2s
+    if not (c2s.shape[0] == n and np.allclose(c2s, np.eye(n))):
+        full = np.einsum("ip,jq,pqr->ijr", c2s, c2s, full, optimize=True)
+    return torch.as_tensor(full, dtype=torch.float64, device=device)

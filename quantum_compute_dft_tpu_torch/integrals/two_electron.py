@@ -56,8 +56,9 @@ def _quartet_kernel(l_bra: int, device, l_ket: int | None = None):
     """Contraction kernel over Hermite pair data with bra combos bounded by
     total angular momentum l_bra and ket combos by l_ket.
 
-    The returned function takes a BLOCK of bra pairs and a block of ket
-    pairs and returns the (nbra, nket) quartet values, with the pair axes
+    The returned function (the JAX package's ``_block_runner``) takes a
+    BLOCK of bra pairs and a block of ket pairs and returns the (nbra,
+    nket) quartet values, with the pair axes
     written out as leading batch dimensions.  (The JAX package vmaps a
     one-quartet kernel twice; under torch.func.vmap every one of the
     ~500 Hermite-recursion ops of that kernel pays a batch-dimension copy,
@@ -107,23 +108,19 @@ def _quartet_kernel(l_bra: int, device, l_ket: int | None = None):
     return quartet_block
 
 
-def eri_packed(basis: BasisSet, screen_tol: float = 1e-12,
-               block: int | None = None, device="cpu"):
-    """ERIs over unique cartesian AO pairs: returns (pair_idx, W) with
-    W[a, b] = (i_a j_a | i_b j_b) for the Schwarz-surviving pair list
-    (W a float64 tensor on `device`)."""
+def pair_data(basis: BasisSet, device="cpu"):
+    """Pair stage over every unique cartesian AO pair (i <= j) -> (iu, ju,
+    p, P, et, cw): numpy pair indices and the Hermite pair tensors
+    (npair, 9), (npair, 9, 3), (npair, 9, nc), (npair, 9) in f64 on
+    `device`.  The counterpart of the JAX package's ``_pairs_runner``."""
     n = basis.ncart
     lmax = int(basis.cart_powers.max())
-    if block is None:
-        # cap the vmapped quartet intermediate (~nc^2 * 81 doubles/quartet)
-        block = 64 if lmax <= 1 else 16
     f64 = torch.float64
 
     def t64(x):
         return torch.as_tensor(np.asarray(x), dtype=f64, device=device)
 
     iu, ju = np.triu_indices(n)
-    npair_all = len(iu)
     pw = torch.as_tensor(basis.cart_powers.astype(np.int64), device=device)
     ce = t64(basis.cart_centers)
     al = basis.cart_alphas
@@ -140,14 +137,40 @@ def eri_packed(basis: BasisSet, screen_tol: float = 1e-12,
             lambda a, b: pair_fn(pw[i], pw[j], ce[i], ce[j], a, b)
         )(a9, b9)
     )(ii, jj, a_grid, b_grid)  # (npair, 9), (npair, 9, 3), (npair, 9, nc)
+    return iu, ju, p_all, P_all, et_all, cw
 
+
+def diag_runner(l_bra: int, device):
+    """(ab|ab) for a block of pairs: the diagonal of the block's quartet
+    block with itself (the JAX package's ``_diag_runner``)."""
+    quartet = _quartet_kernel(l_bra, device)
+
+    def run_diag(p, P, et, cw):
+        return torch.diagonal(quartet(p, P, et, cw, p, P, et, cw))
+
+    return run_diag
+
+
+def eri_packed(basis: BasisSet, screen_tol: float = 1e-12,
+               block: int | None = None, device="cpu"):
+    """ERIs over unique cartesian AO pairs: returns (pair_idx, W) with
+    W[a, b] = (i_a j_a | i_b j_b) for the Schwarz-surviving pair list
+    (W a float64 tensor on `device`)."""
+    lmax = int(basis.cart_powers.max())
+    if block is None:
+        # cap the vmapped quartet intermediate (~nc^2 * 81 doubles/quartet)
+        block = 64 if lmax <= 1 else 16
+    f64 = torch.float64
+
+    iu, ju, p_all, P_all, et_all, cw = pair_data(basis, device)
+    npair_all = len(iu)
     quartet = _quartet_kernel(2 * lmax, device)
+    run_diag = diag_runner(2 * lmax, device)
 
-    # --- Schwarz factors: Q_ab = sqrt((ab|ab)), the diagonal of each
-    # diagonal block ---
+    # --- Schwarz factors: Q_ab = sqrt((ab|ab)) ---
     diag = torch.cat([
-        torch.diagonal(quartet(*(2 * (p_all[s:s + block], P_all[s:s + block],
-                                      et_all[s:s + block], cw[s:s + block]))))
+        run_diag(p_all[s:s + block], P_all[s:s + block],
+                 et_all[s:s + block], cw[s:s + block])
         for s in range(0, npair_all, block)
     ])
     q_fac = torch.sqrt(torch.abs(diag)).cpu().numpy()

@@ -1,10 +1,9 @@
 """High-level restricted Kohn-Sham API of the port.
 
-Port of ``quantum_compute_dft_tpu/kohn_sham.py`` for the in-core path:
-basis, one- and two-electron integrals, grid and AO planes are built by
-this package (torch f64 on the given device), then the SCF runs.  Above
-AUTO_DF_NAO the JAX package switches to density fitting, which this port
-does not have yet.
+Port of ``quantum_compute_dft_tpu/kohn_sham.py``: basis, one- and
+two-electron integrals, grid and AO planes are built by this package
+(torch f64 on the given device), then the SCF runs.  ERIs are in-core up
+to AUTO_DF_NAO and density-fitted by pivoted Cholesky above it.
 """
 
 from __future__ import annotations
@@ -19,6 +18,9 @@ from quantum_compute_dft_tpu_torch.basis.basis_set import sad_occupations
 from quantum_compute_dft_tpu_torch.engine.ao_eval import eval_ao
 from quantum_compute_dft_tpu_torch.grids import Grid, build_grid
 from quantum_compute_dft_tpu_torch.integrals import eri_full, one_electron
+from quantum_compute_dft_tpu_torch.integrals.cholesky import (
+    cholesky_eri_vectors,
+)
 from quantum_compute_dft_tpu_torch.mol import Molecule
 from quantum_compute_dft_tpu_torch.scf.driver import (
     SCFResult,
@@ -28,7 +30,7 @@ from quantum_compute_dft_tpu_torch.scf.driver import (
 )
 from quantum_compute_dft_tpu_torch.xc.functionals import FUNCTIONALS, Functional
 
-# in-core ERIs below/at this nao; the JAX package density-fits above
+# in-core ERIs below/at this nao, density fitting above (see prepare)
 AUTO_DF_NAO = 64
 
 
@@ -41,6 +43,8 @@ class KSSetup:
     nocc: int
     build_time: float
     grid: Grid | None = None
+    # seconds of build_time spent in the Cholesky factorization (DF only)
+    df_time: float = 0.0
 
 
 def _functional(functional: str | Functional) -> Functional:
@@ -55,19 +59,36 @@ def prepare(
     grid_level: int = 3,
     grid: Grid | None = None,
     prune: bool = True,
+    density_fit: bool | None = None,
+    df_aux: str = "parity",
     device="cpu",
 ) -> KSSetup:
-    """Basis, integrals, grid and AO planes on `device` (in-core ERIs)."""
+    """Basis, integrals, grid and AO planes on `device`.
+
+    density_fit=None auto-selects: in-core ERIs up to nao AUTO_DF_NAO,
+    pivoted-Cholesky density fitting above (tol 1e-7: elementwise ERI
+    error <= 1e-7 by construction).  df_aux='parity' (the Cholesky factor)
+    is the only factorization ported; the RI auxiliary tiers 'tight' and
+    'fast' raise NotImplementedError."""
     t0 = time.time()
     fn = _functional(functional)
     basis = build_basis(mol)
-    if basis.nao > AUTO_DF_NAO:
-        raise NotImplementedError(
-            f"nao={basis.nao} > {AUTO_DF_NAO}: the JAX package switches to "
-            "density-fitted J/K here; density fitting comes to the port in a "
-            "later PR")
     s, t, v = one_electron(basis, mol.coords, mol.charges, device=device)
-    eri = eri_full(basis, device=device)
+    if density_fit is None:
+        density_fit = basis.nao > AUTO_DF_NAO
+    eri = l_vec = None
+    df_time = 0.0
+    if density_fit:
+        if df_aux != "parity":
+            raise NotImplementedError(
+                f"df_aux={df_aux!r}: the RI auxiliary-basis tiers ('tight', "
+                "'fast') are not ported yet; use df_aux='parity' (the "
+                "pivoted-Cholesky factor)")
+        t_df = time.time()
+        l_vec = cholesky_eri_vectors(basis, device=device)
+        df_time = time.time() - t_df
+    else:
+        eri = eri_full(basis, device=device)
     if grid is None:
         grid = build_grid(mol, level=grid_level, prune=prune, device=device)
     if fn.needs_grad:
@@ -77,10 +98,12 @@ def prepare(
     sys = make_system(
         t + v, s, eri, ao, grid.weights, ao_grad, mol.energy_nuc(), mol.nocc,
         sad_occ=sad_occupations(basis, mol.charges, mol.nelec),
-        nopen=mol.nopen, device=device,
+        nopen=mol.nopen, device=device, df_l=l_vec,
+        build_k=fn.hyb_coeff != 0.0,
     )
     return KSSetup(sys=sys, functional=fn, nao=basis.nao, ngrid=grid.ngrid,
-                   nocc=mol.nocc, build_time=time.time() - t0, grid=grid)
+                   nocc=mol.nocc, build_time=time.time() - t0, grid=grid,
+                   df_time=df_time)
 
 
 def setup_from_arrays(hcore, s, eri, ao, ao_grad, weights, e_nuc, nocc,
@@ -105,9 +128,11 @@ def run(
     grid_level: int = 3,
     callback=None,
     xc_impl: str = "fast",
+    density_fit: bool | None = None,
     device="cpu",
     **kwargs,
 ) -> SCFResult:
-    setup = prepare(mol, functional, grid_level=grid_level, device=device)
+    setup = prepare(mol, functional, grid_level=grid_level,
+                    density_fit=density_fit, device=device)
     return scf_host(setup.sys, setup.functional, callback=callback,
                     xc_impl=xc_impl, **kwargs)

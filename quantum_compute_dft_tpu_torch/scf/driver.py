@@ -8,11 +8,18 @@ level-shift controller and the charge-sloshing damping guard.
 
 One host loop, :func:`scf_host`, with two schedules:
   * ``xc_impl='f64'`` -- every cycle in f64;
-  * ``xc_impl='fast'`` (the CLI default) -- the in-core case of the JAX
-    package's ``scf_host_staged(xc_impl='fast')``: each cycle builds XC
-    with the f32 CUDA kernel (engine/fused_xc.py) and J/K in f64; a
-    candidate fixed point is then verified by plain f64 cycles, and the
-    reported energy is one f64 ``energy_of_dm``.
+  * ``xc_impl='fast'`` (the CLI default) -- the JAX package's
+    ``scf_host_staged(xc_impl='fast')``: each cycle builds XC with the
+    f32 CUDA kernel (engine/fused_xc.py) and J in f64; K is f64 in-core
+    and, on a density-fitted system, the f32 aux-major K (the JAX
+    package's ``fast_jk='k'``).  A candidate fixed point is then verified
+    by plain f64 cycles (f64 J and K), and the reported energy is one f64
+    ``energy_of_dm``.
+
+J/K come from the in-core ERIs or, above the in-core size, from the
+pivoted-Cholesky factor (integrals/density_fitting.py).  The JAX package's
+J re-anchoring by linearity (its per-cycle f64 J is an emulated TPU
+matvec) is not ported: the card's f64 J is native.
 
 The generalized eigenproblem F C = S C e is solved by symmetric
 orthogonalization X = S^(-1/2) and torch.linalg.eigh.  Every branch the
@@ -35,6 +42,11 @@ from quantum_compute_dft_tpu_torch.engine.coulomb import (
     exchange_full,
 )
 from quantum_compute_dft_tpu_torch.engine.xc_engine import xc_energy, xc_step
+from quantum_compute_dft_tpu_torch.integrals.density_fitting import (
+    _cd_coulomb_q,
+    _df_exchange_f64,
+    _df_exchange_fast,
+)
 from quantum_compute_dft_tpu_torch.scf.diis import (
     DIISState,
     diis_init,
@@ -153,7 +165,7 @@ class SCFSystem:
     hcore: torch.Tensor
     s: torch.Tensor
     x: torch.Tensor            # S^(-1/2)
-    eri: torch.Tensor          # (nao,)*4 in-core ERIs
+    eri: torch.Tensor | None   # (nao,)*4 in-core ERIs; None when DF
     ao: torch.Tensor           # (ngrid, nao)
     weights: torch.Tensor      # (ngrid,)
     ao_grad: torch.Tensor | None   # (3, ngrid, nao) or None
@@ -164,6 +176,13 @@ class SCFSystem:
     nopen: int = 0
     # SAD initial-guess density (diag of atomic occupations); None -> Hcore
     dm_sad: torch.Tensor | None = None
+    # density fitting (Cholesky factor L, W ~= L L^T), when eri is None:
+    # the aux-major f64 factor (naux, nao, nao) for J, its f32 copy for the
+    # kernel-phase K, and the f64 K factor (nao, nao, naux); the K factors
+    # are None for functionals without exact exchange
+    df_bq: torch.Tensor | None = None
+    df_bq32: torch.Tensor | None = None
+    df_l: torch.Tensor | None = None
 
     @property
     def device(self) -> torch.device:
@@ -179,8 +198,11 @@ class EnergyBreakdown(NamedTuple):
 
 
 def make_system(hcore, s, eri, ao, weights, ao_grad, e_nuc, nocc,
-                sad_occ=None, nopen=0, device="cpu") -> SCFSystem:
-    """Upload the setup arrays (numpy or tensors) as f64 on `device`."""
+                sad_occ=None, nopen=0, device="cpu", df_l=None,
+                build_k: bool = True) -> SCFSystem:
+    """Upload the setup arrays (numpy or tensors) as f64 on `device`.
+    With eri=None, df_l is the Cholesky factor (nao, nao, naux); its
+    aux-major copies are built here (the K factors only if build_k)."""
     def t(a):
         if a is None:
             return None
@@ -189,11 +211,19 @@ def make_system(hcore, s, eri, ao, weights, ao_grad, e_nuc, nocc,
         return a.to(dtype=torch.float64, device=device)
 
     s_t = t(s)
+    df = {}
+    if eri is None:
+        l_vec = t(df_l)
+        df["df_bq"] = l_vec.permute(2, 0, 1).contiguous()
+        if build_k:
+            df["df_l"] = l_vec
+            df["df_bq32"] = df["df_bq"].to(torch.float32)
     return SCFSystem(
         hcore=t(hcore), s=s_t, x=s_inv_sqrt(s_t), eri=t(eri), ao=t(ao),
         weights=t(weights), ao_grad=t(ao_grad), e_nuc=float(e_nuc),
         nocc=int(nocc), nopen=int(nopen),
         dm_sad=None if sad_occ is None else torch.diag(t(sad_occ)),
+        **df,
     )
 
 
@@ -252,11 +282,20 @@ def _fused_xc(sys: SCFSystem, functional: Functional, dm):
 
 
 def _build_j(sys: SCFSystem, dm):
-    return coulomb_full(sys.eri, dm)
+    """f64 J: in-core, or the aux-major Cholesky factor."""
+    if sys.eri is not None:
+        return coulomb_full(sys.eri, dm)
+    return _cd_coulomb_q(sys.df_bq, dm)
 
 
-def _build_k(sys: SCFSystem, dm):
-    return exchange_full(sys.eri, dm)
+def _build_k(sys: SCFSystem, dm, fast: bool = False):
+    """K: in-core f64; density-fitted, the f32 aux-major K when `fast`
+    (kernel-phase cycles) and the f64 K otherwise."""
+    if sys.eri is not None:
+        return exchange_full(sys.eri, dm)
+    if fast:
+        return _df_exchange_fast(sys.df_bq32, dm)
+    return _df_exchange_f64(sys.df_l, dm)
 
 
 def _energies(dm_new, sys: SCFSystem, j, k, e_xc, c_hf: float):
@@ -271,14 +310,14 @@ def _energies(dm_new, sys: SCFSystem, j, k, e_xc, c_hf: float):
 
 
 def _cycle_tail(sys: SCFSystem, functional: Functional, dm, diis, e_xc,
-                vxc, shift: float):
+                vxc, shift: float, fast_k: bool = False):
     """J, K, Fock, CDIIS, level shift, eigh density, energies."""
     j = _build_j(sys, dm)
     c_hf = functional.hyb_coeff
     k = None
     f = sys.hcore + j + vxc
     if c_hf != 0.0:
-        k = _build_k(sys, dm)
+        k = _build_k(sys, dm, fast=fast_k)
         f = f - 0.5 * c_hf * k
     diis, f = diis_update(diis, f, dm, sys.s, sys.x)
     f = _level_shift(f, dm, sys.s, shift)
@@ -298,11 +337,12 @@ def scf_iteration(sys: SCFSystem, functional: Functional, dm, diis,
 def scf_iteration_fast(sys: SCFSystem, functional: Functional, dm, diis,
                        shift: float = 0.0):
     """One kernel-phase cycle of the 'fast' schedule: f32 XC from the
-    fused kernel, then the f64 tail, with the density sanity guard
-    (scf_host_staged's cycle).  -> (dm_new, diis, energies [5], dnorm)."""
+    fused kernel, then the tail (f32 K when density-fitted), with the
+    density sanity guard (scf_host_staged's cycle).  -> (dm_new, diis,
+    energies [5], dnorm)."""
     e_xc, vxc = _fused_xc(sys, functional, dm)
     dm_new, diis, energies = _cycle_tail(sys, functional, dm, diis, e_xc,
-                                         vxc, shift)
+                                         vxc, shift, fast_k=True)
     dm_new, insane = _density_sanity(sys, dm, dm_new)
     dnorm = torch.linalg.norm(dm_new - dm) + insane
     return dm_new, diis, energies(dm_new), dnorm

@@ -8,8 +8,11 @@ Pallas kernel itself sits 1.2e-5 (relative E) and 1.4e-5 (V) from the f64
 engine -- its 2-pass bf16 row reductions carry ~2^-17 relative error
 (ROADMAP, "Reduction precision") -- while the plain f32 version sits
 below 1e-7 and 1e-6; the bound is the Pallas kernel's own error with
-margin.  The CUDA kernel itself is tested in tests/test_torch_gpu.py.
+margin.  The same bounds hold at npad 72 on real Decane AO planes.  The
+CUDA kernel itself is tested in tests/test_torch_gpu.py.
 """
+
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,13 +22,25 @@ from jax.experimental import pallas as pl
 
 import quantum_compute_dft_tpu.engine.pallas_xc as px
 from quantum_compute_dft_tpu import kohn_sham as jax_kohn_sham
+from quantum_compute_dft_tpu.basis import build_basis as jax_build_basis
+from quantum_compute_dft_tpu.basis.basis_set import (
+    sad_occupations as jax_sad_occupations,
+)
+from quantum_compute_dft_tpu.engine.ao_eval import eval_ao as jax_eval_ao
+from quantum_compute_dft_tpu.grids import build_grid as jax_build_grid
 from quantum_compute_dft_tpu.mol import from_atoms as jax_from_atoms
+from quantum_compute_dft_tpu.mol import from_xyz_file as jax_from_xyz_file
 from quantum_compute_dft_tpu.scf.driver import initial_guess as jax_guess
+from quantum_compute_dft_tpu.xc.functionals import (
+    FUNCTIONALS as JAX_FUNCTIONALS,
+)
 from quantum_compute_dft_tpu_torch.engine import fused_xc
 from quantum_compute_dft_tpu_torch.engine.xc_engine import xc_step
 from quantum_compute_dft_tpu_torch.xc import FUNCTIONALS
 
 torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 H2O = [("O", (0.0, 0.0, 0.127)), ("H", (0.0, 0.758, -0.509)),
        ("H", (0.0, -0.758, -0.509))]
@@ -76,6 +91,43 @@ def test_reference_matches_pallas_and_f64(interpret, name):
     assert float(torch.abs(v - v64).max()) < 5e-5
 
 
+@pytest.fixture(scope="module")
+def decane_planes():
+    """Real Decane planes (nao 72, npad 72) from the JAX eval_ao on every
+    32nd point of the grid-1 grid (4,307 points), and a seeded perturbed
+    SAD density, as numpy."""
+    mol = jax_from_xyz_file(os.path.join(ROOT, "molecules", "Decane.xyz"))
+    basis = jax_build_basis(mol)
+    grid = jax_build_grid(mol, level=1)
+    ao, grad = jax_eval_ao(basis, grid.coords[::32], deriv=1)
+    rng = np.random.default_rng(17)
+    pert = rng.standard_normal((basis.nao, basis.nao)) * 1e-2
+    dm = np.diag(jax_sad_occupations(basis, mol.charges, mol.nelec)) + \
+        pert + pert.T
+    return dm, np.asarray(ao), grid.weights[::32], np.asarray(grad)
+
+
+@pytest.mark.parametrize("name", ["LDA", "GGA", "B3LYP"])
+def test_reference_matches_pallas_above_npad_64(interpret, decane_planes,
+                                                name):
+    dm, ao, w, grad = decane_planes
+    fn = FUNCTIONALS[name]
+    grad = grad if fn.needs_grad else None
+    assert fused_xc._npad_for(ao.shape[1]) == 72
+    e_px, v_px = px.xc_step_pallas(
+        JAX_FUNCTIONALS[name], jnp.asarray(dm), jnp.asarray(ao),
+        jnp.asarray(w), None if grad is None else jnp.asarray(grad),
+        tile=512)
+    dm_t, ao_t, w_t, g_t = _torch(dm, ao, w, grad)
+    e, v = fused_xc.xc_step_fused(fn, dm_t, ao_t, w_t, g_t)
+    e_px = float(e_px)
+    assert abs(float(e) - e_px) < 2e-5 * abs(e_px)
+    assert np.abs(v.numpy() - np.asarray(v_px)).max() < 2e-5
+    e64, v64 = xc_step(fn, dm_t, ao_t, w_t, g_t)
+    assert abs(float(e) - float(e64)) < 5e-5 * abs(float(e64))
+    assert float(torch.abs(v - v64).max()) < 5e-5
+
+
 def test_cpu_tensors_take_the_plain_version():
     setup, dm, ao, w, grad = _inputs("GGA")
     fn = FUNCTIONALS["GGA"]
@@ -95,15 +147,31 @@ def test_cpu_tensors_take_the_plain_version():
 
 def test_kernel_shape_checks():
     fn = FUNCTIONALS["LDA"]
-    n = 65
+    n = 385
     dm = torch.zeros((n, n), dtype=torch.float64)
-    aot = torch.zeros((72, 1024))
     wt = torch.zeros(1024)
-    with pytest.raises(ValueError, match="npad <= 64"):
-        fused_xc._check_inputs(fn, dm, aot, wt, None, n)
+    fused_xc._check_inputs(fn, dm[:377, :377], torch.zeros((384, 1024)), wt,
+                           None, 377)
+    with pytest.raises(ValueError, match="npad <= 384"):
+        fused_xc._check_inputs(fn, dm, torch.zeros((392, 1024)), wt, None, n)
     with pytest.raises(ValueError, match="bad shapes"):
         fused_xc._check_inputs(fn, dm[:8, :8], torch.zeros((8, 1000)),
                                torch.zeros(1000), None, 8)
+    with pytest.raises(ValueError, match="bad shapes"):
+        fused_xc._check_inputs(fn, dm[:6, :6], torch.zeros((6, 1024)), wt,
+                               None, 6)
+
+
+@pytest.mark.parametrize("npad,gpad", [(8, 1024), (40, 138240),
+                                       (152, 634880), (384, 65536),
+                                       (384, 1150976)])
+def test_v_chunk_covers_the_grid_with_bounded_scratch(npad, gpad):
+    chunk = fused_xc.v_chunk(npad, gpad)
+    nchunk = -(-gpad // chunk)
+    ntile = -(-npad // fused_xc.TILE)
+    assert chunk % fused_xc.CHUNK == 0 and (nchunk - 1) * chunk < gpad
+    # partial buffer nchunk * (64 ntile)^2 f32 stays within V_BLOCKS tiles
+    assert nchunk * ntile * ntile <= fused_xc.V_BLOCKS
 
 
 @pytest.mark.parametrize("name", ["GGA", "B3LYP"])

@@ -93,9 +93,16 @@ def test_fast_schedule_matches_f64():
     assert abs(res.e_tot - ref.e_tot) < 1e-7
 
 
-def test_nao_above_incore_limit_raises():
-    with pytest.raises(NotImplementedError, match="density fitting"):
-        kohn_sham.prepare(from_xyz_file(_xyz("Anthracene")), "LDA")
+@pytest.mark.parametrize("limit,df", [(6, True), (7, False)])
+def test_auto_rule_selects_df_above_limit(monkeypatch, limit, df):
+    # H2O has nao 7: density-fitted above the limit, in-core at it
+    monkeypatch.setattr(kohn_sham, "AUTO_DF_NAO", limit)
+    setup = kohn_sham.prepare(from_xyz_file(_xyz("H2O")), "LDA",
+                              grid_level=1)
+    s = setup.sys
+    assert (s.eri is None) == df and (s.df_bq is not None) == df
+    assert s.df_l is None and s.df_bq32 is None   # LDA builds no K
+    assert (setup.df_time > 0.0) == df
 
 
 def test_diis_matches_jax():

@@ -64,9 +64,11 @@ def main(argv=None) -> int:
     setup = kohn_sham.prepare(mol, args.functional,
                               grid_level=args.grid_level, device=dev)
     torch.cuda.synchronize()
-    print(f"prepare: {time.time() - t0:.3f} s (nao {setup.nao}, ngrid "
-          f"{setup.ngrid})")
     s, fn = setup.sys, setup.functional
+    jk = ("in-core ERIs" if s.eri is not None else
+          f"Cholesky DF rank {s.df_bq.shape[0]}, {setup.df_time:.3f} s")
+    print(f"prepare: {time.time() - t0:.3f} s (nao {setup.nao}, ngrid "
+          f"{setup.ngrid}, {jk})")
     res = d.scf_host(s, fn, xc_impl="fast")
     dm = res.dm
     diis = d.diis_init(dm.shape[0], device=dev)
@@ -74,7 +76,6 @@ def main(argv=None) -> int:
     pieces = {
         "fused XC kernel (f32)": lambda: d._fused_xc(s, fn, dm),
         "J (f64)": lambda: d._build_j(s, dm),
-        "K (f64)": lambda: d._build_k(s, dm),
         "CDIIS update": lambda: d.diis_update(diis, f, dm, s.s, s.x),
         "eigh density": lambda: d._density(s.x, f, s.nocc, s.nopen),
         "density sanity": lambda: d._density_sanity(s, dm, dm),
@@ -87,6 +88,11 @@ def main(argv=None) -> int:
         "f64 xc_energy (final energy)": lambda: xc_energy(
             fn, dm, s.ao, s.weights, s.ao_grad),
     }
+    if s.eri is not None or s.df_l is not None:
+        pieces["K (f64)"] = lambda: d._build_k(s, dm)
+    if s.df_bq32 is not None:
+        pieces["K (f32, DF kernel phase)"] = lambda: d._build_k(
+            s, dm, fast=True)
     for name, fn_ in pieces.items():
         print(f"  {name:32s} {_ms(fn_):9.4f} ms (median of 20)")
 
