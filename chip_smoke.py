@@ -6,7 +6,8 @@ Phases (each prints its result and seconds on its own line; any failure
 raises and the script exits non-zero without the final line):
 
   1. environment: nvidia-smi name/power limit, device, torch/scipy/nvcc
-  2. build the fused XC kernels (K1 GGA body, K2 LDA body) from csrc/
+  2. build the fused XC kernels (K1 GGA body, K2 LDA body, K3 and the K1
+     variants) from csrc/
   3. each kernel against its plain PyTorch version and the f64 engine on
      H2O (grid 1) and benzene (grid 3) for LDA/GGA/B3LYP, and above npad
      64 at the density-fitting shapes: Decane's first 65 AOs (npad 72,
@@ -16,6 +17,16 @@ raises and the script exits non-zero without the final line):
      finiteness of the device functional over extreme (rho, sigma), kernel
      and plain times at the benzene and DHA shapes (median of 25 calls,
      CUDA events)
+     c. K3 (phi_D on bf16 tensor cores), GGA and LDA bodies, at every
+        shape of 3a/3b: against the plain K3 (relative dE 1e-5, max dV
+        5e-5) and the f64 engine (3e-4 and 3e-3, the JAX package's K3
+        contract), bitwise equal over two calls; times at benzene and DHA
+     d. each K1 ablation (nophi, phi3, noprod, nofunc, nov) and the split2
+        row sums at benzene (PBE) and DHA (B3LYP), split2 also in the LDA
+        body, against their own plain versions (relative dE 1e-5; max dV
+        1e-5 for split2, of max(1, max |V|) 5e-5 for the ablations, whose
+        V reaches 1e10 (nofunc), and 2e-3 for noprod, see TOL_NOPROD_V);
+        nov's V exactly zero; times
   4. the main paths, each with the kernels' launch counts set to 0 just
      before it and read just after, through the port's CLI in process with
      --xc-impl fast at grid level 3:
@@ -24,6 +35,10 @@ raises and the script exits non-zero without the final line):
      b. density fitting (auto above nao 64): B3LYP Decane and DHA against
         docs/RESULTS.md, and LDA Decane against the port's own
         --xc-impl f64 run of the same molecule
+  5. the variant sweep (tools/torch_xc_sweep.py, in process) at DHA grid 3
+     with the launch counts set to 0 just before it: one JSON line per
+     variant, one launch of each variant's kernel per kernel call it made,
+     each E within 1e-5 of its plain version
 
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.  Imports nothing of JAX; needs a CUDA GPU.
@@ -45,6 +60,17 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # kernel's contract, tests/test_pallas.py)
 TOL_PLAIN = 1e-5
 TOL_F64 = 5e-5
+# K3 (3-pass bf16 phi_D): max dV against its plain version, and (relative
+# dE, max dV) against the f64 engine (tests/test_pallas.py's K3 contract)
+TOL_K3_PLAIN_V = 5e-5
+TOL_K3_F64 = 3e-4, 3e-3
+# the ablations' max dV against their plain versions, of max(1, max |V|).
+# noprod's rho = sum phi_D cancels to near zero at some points, where the
+# B3LYP potentials amplify the f32 rounding of that sum: 6.3e-4 of max |V|
+# at DHA grid 3 (E agrees to 7e-8); scaling D by 1 + 1e-7 xi moves noprod's
+# V by 3.5e-4 of max |V| there, K1's by 1.5e-7
+TOL_ABLATE_V = 5e-5
+TOL_NOPROD_V = 2e-3
 BENZENE_E = -229.10950264    # BENCH_r05.json, Benzene PBE grid 3
 BENZENE_TOL = 1e-6
 # docs/RESULTS.md:61, 68 (B3LYP grid 3, density-fitted).  The reference
@@ -58,9 +84,18 @@ FAST_VS_F64_TOL = 1e-7       # tests/test_torch_scf.py
 DF_SHAPES = (("Decane", 3, None), ("DHA", 3, None),
              ("C33H56N7O17P3S", 1, 65536))
 KERNEL_SRC = "quantum_compute_dft_tpu_torch/csrc/fused_xc.cu"
+_PX = "quantum_compute_dft_tpu/engine/pallas_xc.py:"
 REPLACES = {
-    "K1": "quantum_compute_dft_tpu/engine/pallas_xc.py:201",
-    "K2": "quantum_compute_dft_tpu/engine/pallas_xc.py:269",
+    "K1": _PX + "201", "K2": _PX + "269", "K3": _PX + "157",
+    "nophi": _PX + "219", "phi3": _PX + "221", "noprod": _PX + "227",
+    "nofunc": _PX + "243", "nov": _PX + "262", "split2": _PX + "187",
+}
+KERNEL_NAMES = {
+    "K1": "K1 fused_xc GGA body", "K2": "K2 fused_xc LDA body",
+    "K3": "K3 fused_xc phi_D on bf16 tensor cores (both bodies)",
+    "nophi": "K1 ablation nophi", "phi3": "K1 ablation phi3",
+    "noprod": "K1 ablation noprod", "nofunc": "K1 ablation nofunc",
+    "nov": "K1 ablation nov", "split2": "fused_xc split2 row sums",
 }
 
 
@@ -119,44 +154,62 @@ def _cuda_ms(fn, reps=25, warm=3):
     return statistics.median(times)
 
 
-def _compare(label, kid, fn, dm, aot, wt, grads, n, ao64, w64, grad64, rec):
-    """One kernel call against the plain version and the f64 engine, and
-    two calls bitwise equal; records the worst plain deviation."""
+def _compare(label, kid, case, rec, variant=None, tol_plain=(TOL_PLAIN,
+             TOL_PLAIN), tol_f64=(TOL_F64, TOL_F64), v_scaled=False):
+    """One kernel call of `variant` against its plain version (and, with
+    tol_f64, the f64 engine), and two calls bitwise equal; records the
+    worst plain deviation under `kid`.  v_scaled: the plain max dV bound
+    is taken of max(1, max |V|).  -> the kernel's V."""
     import numpy as np
     import torch
 
     from quantum_compute_dft_tpu_torch.engine import fused_xc
     from quantum_compute_dft_tpu_torch.engine.xc_engine import xc_step
 
-    e_k, v_k = fused_xc.fused_xc(fn, dm, aot, wt, grads, n)
-    e_k2, v_k2 = fused_xc.fused_xc(fn, dm, aot, wt, grads, n)
+    variant = variant or {}
+    fn, dm, aot, wt, grads, n, ao64, w64, grad64 = case[1:]
+    e_k, v_k = fused_xc.fused_xc(fn, dm, aot, wt, grads, n, **variant)
+    e_k2, v_k2 = fused_xc.fused_xc(fn, dm, aot, wt, grads, n, **variant)
     if not (torch.equal(e_k, e_k2) and torch.equal(v_k, v_k2)):
         raise AssertionError(f"{kid} {label}: two kernel calls differ "
                              "(reductions must be deterministic)")
-    e_p, v_p = fused_xc.fused_xc_reference(fn, dm, aot, wt, grads, n)
-    e_64, v_64 = xc_step(fn, dm, ao64, w64, grad64)
+    e_p, v_p = fused_xc.fused_xc_reference(fn, dm, aot, wt, grads, n,
+                                           **variant)
     torch.cuda.synchronize()
-    e_k, e_p, e_64 = float(e_k), float(e_p), float(e_64)
+    e_k, e_p = float(e_k), float(e_p)
     dv_p = float(torch.abs(v_k - v_p).max())
-    dv_64 = float(torch.abs(v_k - v_64).max())
     de_p = abs(e_k - e_p) / abs(e_p)
-    de_64 = abs(e_k - e_64) / abs(e_64)
-    print(f"  {kid} {label} nao={n} npad={aot.shape[0]} points="
-          f"{ao64.shape[0]}: rel dE plain {de_p:.2e} f64 {de_64:.2e}; max dV "
-          f"plain {dv_p:.2e} f64 {dv_64:.2e}", flush=True)
-    if not (np.isfinite([e_k, dv_p, dv_64]).all()
-            and de_p < TOL_PLAIN and dv_p < TOL_PLAIN
-            and de_64 < TOL_F64 and dv_64 < TOL_F64):
+    tol_v = tol_plain[1]
+    if v_scaled:
+        tol_v *= max(1.0, float(v_p.abs().max()))
+    msg = (f"  {kid} {label} nao={n} npad={aot.shape[0]} points="
+           f"{ao64.shape[0]}: rel dE plain {de_p:.2e}")
+    ok = (np.isfinite([e_k, dv_p]).all() and bool(torch.isfinite(v_k).all())
+          and de_p < tol_plain[0] and dv_p < tol_v)
+    if tol_f64 is not None:
+        e_64, v_64 = xc_step(fn, dm, ao64, w64, grad64)
+        e_64 = float(e_64)
+        dv_64 = float(torch.abs(v_k - v_64).max())
+        de_64 = abs(e_k - e_64) / abs(e_64)
+        msg += f" f64 {de_64:.2e}; max dV plain {dv_p:.2e} f64 {dv_64:.2e}"
+        ok = ok and np.isfinite(dv_64) and de_64 < tol_f64[0] and \
+            dv_64 < tol_f64[1]
+    else:
+        msg += f"; max dV plain {dv_p:.2e} (max |V| {float(v_p.abs().max()):.3e})"
+    print(msg, flush=True)
+    if not ok:
         raise AssertionError(f"{kid} {label} outside tolerance")
     rec[kid]["max_abs_err"] = max(rec[kid]["max_abs_err"], dv_p)
+    return v_k
 
 
-def _time(kid, label, fn, dm, aot, wt, grads, n, rec, key):
+def _time(kid, label, case, rec, key, variant=None):
     from quantum_compute_dft_tpu_torch.engine import fused_xc
 
-    ms = _cuda_ms(lambda: fused_xc.fused_xc(fn, dm, aot, wt, grads, n))
-    plain = _cuda_ms(lambda: fused_xc.fused_xc_reference(fn, dm, aot, wt,
-                                                         grads, n))
+    variant = variant or {}
+    args = case[1:7]
+    ms = _cuda_ms(lambda: fused_xc.fused_xc(*args, **variant))
+    plain = _cuda_ms(lambda: fused_xc.fused_xc_reference(*args, **variant))
     rec[kid][key + "ms"], rec[kid][key + "plain_ms"] = ms, plain
     print(f"  {kid} {label} time: kernel {ms:.4f} ms, plain {plain:.4f} ms "
           "(median of 25)", flush=True)
@@ -195,7 +248,9 @@ def _df_shapes(dev):
 
 
 def phase_kernels(dev):
-    """Kernel vs plain vs f64 engine; returns per-kernel records."""
+    """Kernel vs plain vs f64 engine; returns per-kernel records and the
+    checked cases (label, functional, dm, packed planes, n, f64 planes),
+    which phases 3c and 3d reuse."""
     t0 = time.time()
     import numpy as np
     import torch
@@ -206,7 +261,8 @@ def phase_kernels(dev):
     from quantum_compute_dft_tpu_torch.scf.driver import initial_guess
     from quantum_compute_dft_tpu_torch.xc import FUNCTIONALS
 
-    rec = {k: {"max_abs_err": 0.0} for k in ("K1", "K2")}
+    rec = {k: {"max_abs_err": 0.0} for k in REPLACES}
+    cases = []
     rng = np.random.default_rng(7)
     for mol_name, level in (("H2O", 1), ("Benzene", 3)):
         mol = from_xyz_file(os.path.join(HERE, "molecules", mol_name + ".xyz"))
@@ -219,11 +275,12 @@ def phase_kernels(dev):
             aot, wt, grads = fused_xc.pack_inputs(s.ao, s.weights, s.ao_grad,
                                                   needs_grad=fn.needs_grad)
             kid = "K1" if fn.needs_grad else "K2"
-            _compare(f"{mol_name}/{fname}", kid, fn, dm, aot, wt, grads, n,
-                     s.ao, s.weights, s.ao_grad, rec)
+            case = (f"{mol_name}/{fname}", fn, dm, aot, wt, grads, n, s.ao,
+                    s.weights, s.ao_grad)
+            _compare(case[0], kid, case, rec)
             if mol_name == "Benzene" and fname in ("LDA", "GGA"):
-                _time(kid, f"benzene {fname}", fn, dm, aot, wt, grads, n,
-                      rec, "")
+                _time(kid, f"benzene {fname}", case, rec, "")
+            cases.append(case)
     _phase("3a kernels, in-core shapes", t0, "K1/K2 match the plain "
            "version and the f64 engine")
 
@@ -235,14 +292,11 @@ def phase_kernels(dev):
             g = grad if fn.needs_grad else None
             aot, wt, grads = fused_xc.pack_inputs(ao, w, g,
                                                   needs_grad=fn.needs_grad)
-            _compare(f"{label}/{fname}", kid, fn, dm, aot, wt, grads, n, ao,
-                     w, g, rec)
+            case = (f"{label}/{fname}", fn, dm, aot, wt, grads, n, ao, w, g)
+            _compare(case[0], kid, case, rec)
             if label.startswith("DHA"):
-                _time(kid, f"DHA {fname}", fn, dm, aot, wt, grads, n, rec,
-                      "dha_")
-            del aot, wt, grads
-        del dm, ao, w, grad
-        torch.cuda.empty_cache()
+                _time(kid, f"DHA {fname}", case, rec, "dha_")
+            cases.append(case)
     _phase("3b kernels, density-fitting shapes", t1, "K1/K2 match the plain "
            "version and the f64 engine at npad 72, 152 and 384")
 
@@ -261,7 +315,53 @@ def phase_kernels(dev):
                                      "extreme (rho, sigma) mesh")
     _phase("3 kernels", t0, "K1/K2 match the plain version and the f64 "
            "engine; functional finite over the extreme mesh")
-    return rec
+    return rec, cases
+
+
+# the cases timed in 3c/3d -> their record key prefix ("" benzene GGA body)
+TIMED = {"Benzene/GGA": "", "Benzene/LDA": "lda_", "DHA grid 3/B3LYP": "dha_",
+         "DHA grid 3/LDA": "dha_lda_"}
+
+
+def phase_k3(cases, rec):
+    """K3 at every phase-3 shape, GGA and LDA bodies."""
+    t0 = time.time()
+    k3 = {"phi_split": True}
+    for case in cases:
+        _compare(case[0], "K3", case, rec, k3, (TOL_PLAIN, TOL_K3_PLAIN_V),
+                 TOL_K3_F64)
+        if case[0] in TIMED:
+            _time("K3", case[0], case, rec, TIMED[case[0]], k3)
+    _phase("3c K3", t0, "K3 matches the plain K3 and the f64 engine at "
+           "every phase-3 shape, GGA and LDA bodies")
+
+
+def phase_variants(cases, rec):
+    """The ablations (GGA body) and split2 (both bodies) at benzene and DHA
+    against their plain versions; nov's V exactly zero; times in the GGA
+    body."""
+    from quantum_compute_dft_tpu_torch.engine.fused_xc import (
+        ABLATIONS,
+        VARIANTS,
+    )
+
+    t0 = time.time()
+    for case in cases:
+        label, fn = case[0], case[1]
+        if label not in TIMED:
+            continue
+        for kid in ("split2", *ABLATIONS) if fn.needs_grad else ("split2",):
+            variant = VARIANTS[kid]
+            tol_v = (TOL_NOPROD_V if kid == "noprod" else TOL_ABLATE_V
+                     if kid in ABLATIONS else TOL_PLAIN)
+            v = _compare(label, kid, case, rec, variant, (TOL_PLAIN, tol_v),
+                         None, v_scaled=kid in ABLATIONS)
+            if kid == "nov" and bool(v.any()):
+                raise AssertionError(f"nov {label}: V is not zero")
+            if fn.needs_grad:
+                _time(kid, label, case, rec, TIMED[label], variant)
+    _phase("3d K1 variants", t0, "ablations and split2 match their plain "
+           "versions at benzene and DHA; nov's V is zero")
 
 
 def _golden(molecule, functional):
@@ -339,28 +439,67 @@ def phase_main(dev):
     return incore, df
 
 
+def phase_sweep():
+    """The variant sweep's entry point at DHA grid 3, in process, with the
+    launch counts set to 0 just before and read just after; returns them."""
+    t0 = time.time()
+    import numpy as np
+
+    from quantum_compute_dft_tpu_torch.engine import fused_xc
+    from quantum_compute_dft_tpu_torch.xc import FUNCTIONALS
+
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import torch_xc_sweep
+
+    for k in fused_xc.LAUNCHES:
+        fused_xc.LAUNCHES[k] = 0
+    rows = torch_xc_sweep.sweep(["DHA", "3"])
+    launches = dict(fused_xc.LAUNCHES)
+    expect = dict.fromkeys(launches, 0)
+    for row in rows:
+        (name,) = fused_xc.launch_names(
+            FUNCTIONALS["B3LYP"], **fused_xc.VARIANTS[row["variant"]])
+        expect[name] += row["calls"]
+        de = abs(row["e_xc"] - row["e_xc_plain"]) / abs(row["e_xc_plain"])
+        if not (np.isfinite(row["e_xc"]) and de < TOL_PLAIN):
+            raise AssertionError(f"sweep {row['variant']}: E {row['e_xc']} "
+                                 f"vs plain {row['e_xc_plain']}")
+    if [r["variant"] for r in rows] != list(fused_xc.VARIANTS):
+        raise AssertionError("the sweep did not run every variant")
+    if launches != expect:
+        raise AssertionError(f"sweep launches {launches}, expected one per "
+                             f"kernel call: {expect}")
+    _phase("5 variant sweep (DHA grid 3)", t0, f"launches {launches}")
+    return launches
+
+
 def main() -> int:
     smi = phase_env()
     phase_build()
     import torch
 
     dev = torch.device("cuda")
-    rec = phase_kernels(dev)
+    rec, cases = phase_kernels(dev)
+    phase_k3(cases, rec)
+    phase_variants(cases, rec)
+    del cases
+    torch.cuda.empty_cache()
     incore, df = phase_main(dev)
+    sweep = phase_sweep()
 
-    kernels = [{
-        "name": f"{kid} fused_xc {'GGA' if kid == 'K1' else 'LDA'} body",
-        "route": "cuda",
-        "source": KERNEL_SRC,
-        "replaces": REPLACES[kid],
-        "launches": df[kid],
-        "incore_launches": incore[kid],
-        "max_abs_err": rec[kid]["max_abs_err"],
-        "ms": rec[kid]["ms"],
-        "plain_ms": rec[kid]["plain_ms"],
-        "dha_ms": rec[kid]["dha_ms"],
-        "dha_plain_ms": rec[kid]["dha_plain_ms"],
-    } for kid in ("K1", "K2")]
+    kernels = []
+    for kid in REPLACES:
+        entry = {"name": KERNEL_NAMES[kid], "route": "cuda",
+                 "source": KERNEL_SRC, "replaces": REPLACES[kid]}
+        if kid in ("K1", "K2"):  # the SCF's kernels: the main paths' counts
+            entry.update(launches=df[kid], incore_launches=incore[kid],
+                         sweep_launches=sweep[kid])
+        else:
+            entry["launches"] = sweep[kid]
+        if entry["launches"] < 1:
+            raise AssertionError(f"{kid} was not launched on its path")
+        entry.update(rec[kid])
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -4,11 +4,27 @@ Kernels K1 (GGA body: PBE, B3LYP) and K2 (LDA body: LDA, and HF through
 the zero functional) are hand-written CUDA C++ for sm_90a in
 ``csrc/fused_xc.cu`` (design, bounds and reduction scheme in its header
 note).  They replace ``quantum_compute_dft_tpu/engine/pallas_xc.py::
-_make_kernel``.  This module builds them at first use (nvcc, keyed by a
-hash of the sources), binds them with ctypes, and keeps beside them:
+_make_kernel``, and so do the variants that factory can build, chosen by
+keyword (arguments, not environment variables, so one process can run
+them all):
+
+  * ``phi_split=True``: K3, phi_D as the 3-pass bf16 split on the tensor
+    cores (``_make_kernel(phi_split=True)``), either body;
+  * ``ablate=``: the GGA body with one phase stubbed (``_ENV_ABLATE``):
+    "nophi" (phi_D := AO), "phi3" (phi_D through K3), "noprod" (row sums
+    without the products), "nofunc" (e = rho, vrho = rho, vsigma = sigma),
+    "nov" (no B^T and no V: V = 0).  Wrong results by design: they exist
+    to attribute the kernel's time to its phases;
+  * ``reduce="split2"``: the Pallas default's 2-pass bf16 row sums of rho,
+    grad rho and E; the default "f32" is ``_ENV_VPU_REDUCE``'s plain sum.
+
+The SCF passes no variant.  This module builds the kernels at first use
+(nvcc, keyed by a hash of the sources), binds them with ctypes, and keeps
+beside them:
 
   * ``fused_xc_reference``: the plain PyTorch f32 version of the same
-    function (the Pallas math, potentials by torch.autograd);
+    function and of every variant (the Pallas math, potentials by
+    torch.autograd, matmuls in full f32);
   * ``LAUNCHES``: how many times each kernel was launched;
   * ``pack_inputs``: the one-time f32 transpose/pad of the AO planes
     (the port of ``pack_pallas_inputs``/``_pack_plane``).
@@ -20,6 +36,7 @@ raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -52,9 +69,22 @@ TILE = 64         # output tile edge of the kernels' two products
 # chunk grows with npad so that the partial buffer stays ~V_BLOCKS * 16 KB
 V_BLOCKS = 2048
 
-# kernel launches, counted by the wrapper where it launches (K1: GGA body,
-# K2: LDA body)
-LAUNCHES = {"K1": 0, "K2": 0}
+ABLATIONS = ("nophi", "phi3", "noprod", "nofunc", "nov")
+REDUCTIONS = ("f32", "split2")
+# the variant word of the C entry (csrc/fused_xc.cu's k* constants)
+_VAR_BITS = {"phi_split": 1, "nophi": 2, "phi3": 1, "noprod": 4,
+             "nofunc": 8, "nov": 16, "split2": 32}
+
+# each variant alone, by the LAUNCHES name it counts under -> the keywords
+# of fused_xc (K1: none; tools/torch_xc_sweep.py times them all)
+VARIANTS = {"K1": {}, "K3": {"phi_split": True},
+            **{a: {"ablate": a} for a in ABLATIONS},
+            "split2": {"reduce": "split2"}}
+
+# kernel launches, counted by the wrapper where it launches: K1 (GGA body)
+# and K2 (LDA body) with no variant; a variant counts under its own names
+# instead (K3 for phi_split, the ablation's name, split2)
+LAUNCHES = {"K1": 0, "K2": 0, **dict.fromkeys(VARIANTS, 0)}
 
 _LIB = None
 
@@ -106,7 +136,7 @@ def _lib():
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused_xc.argtypes = [i, i, i, i, i] + [p] * 12
+        lib.fused_xc.argtypes = [i, i, i, i, i, i] + [p] * 12
         lib.fused_xc.restype = i
         lib.xc_functional_eval.argtypes = [i, i] + [p] * 6
         lib.xc_functional_eval.restype = i
@@ -185,25 +215,102 @@ def functional_eval_reference(functional: Functional, rho, sigma=None):
     return torch.where(live, e, zero), torch.where(live, vr, zero), None
 
 
-def fused_xc_reference(functional: Functional, dm, aot, wt, grads, n: int):
-    """Plain f32 PyTorch version of K1/K2 on packed planes -> (E_xc, V_xc)
-    in dm's dtype."""
+def launch_names(functional: Functional, phi_split: bool = False,
+                 ablate: str = "", reduce: str = "f32") -> list[str]:
+    """The LAUNCHES keys one call of this variant counts under; raises on
+    a variant _make_kernel cannot build or the port does not take."""
+    if reduce not in REDUCTIONS:
+        raise ValueError(f"reduce must be one of {REDUCTIONS}, got {reduce!r}")
+    if ablate:
+        if ablate not in ABLATIONS:
+            raise ValueError(f"ablate must be one of {ABLATIONS}, got "
+                             f"{ablate!r}")
+        if not functional.needs_grad:
+            raise ValueError(f"ablation {ablate!r} exists for the GGA body "
+                             f"only (pallas_xc.py), not {functional.name}")
+        if phi_split or reduce != "f32":
+            raise ValueError("an ablation changes one phase of K1: it takes "
+                             "phi_split=False and reduce='f32'")
+        return [ablate]
+    names = (["K3"] if phi_split else []) + (
+        ["split2"] if reduce == "split2" else [])
+    return names or ["K1" if functional.needs_grad else "K2"]
+
+
+def _variant_word(phi_split: bool, ablate: str, reduce: str) -> int:
+    return ((_VAR_BITS["phi_split"] if phi_split else 0)
+            | _VAR_BITS.get(ablate, 0)
+            | (_VAR_BITS["split2"] if reduce == "split2" else 0))
+
+
+def _split(x):
+    """(hi, lo) = (bf16(x), bf16(x - hi)), both back in f32: pallas_xc.py's
+    split.  A product of two such values is exact in f32."""
+    hi = x.to(torch.bfloat16).to(torch.float32)
+    return hi, (x - hi).to(torch.bfloat16).to(torch.float32)
+
+
+def _rowsum(x, dim: int, reduce: str):
+    if reduce == "split2":  # the selector matmuls: sum(hi) + sum(lo)
+        hi, lo = _split(x)
+        return torch.sum(hi, dim=dim) + torch.sum(lo, dim=dim)
+    return torch.sum(x, dim=dim)
+
+
+@contextlib.contextmanager
+def _full_f32_matmul():
+    """Full f32 products (no TF32) while the plain version runs."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def fused_xc_reference(functional: Functional, dm, aot, wt, grads, n: int,
+                       *, phi_split: bool = False, ablate: str = "",
+                       reduce: str = "f32"):
+    """Plain f32 PyTorch version of K1/K2 and of each variant (see the
+    module note) on packed planes -> (E_xc, V_xc) in dm's dtype."""
+    launch_names(functional, phi_split, ablate, reduce)
     npad = aot.shape[0]
-    dm_p = _pad_dm(dm, npad)
-    phi_d = dm_p @ aot                                   # (npad, gpad)
-    rho = torch.sum(phi_d * aot, dim=0)
-    if functional.needs_grad:
-        gr = 2.0 * torch.sum(grads * phi_d[None], dim=1)  # (3, gpad)
-        sigma = torch.sum(gr * gr, dim=0)
-        e, vrho, vsigma = functional_eval_reference(functional, rho, sigma)
-        wvs = 2.0 * wt * vsigma
-        bt = ((wt * vrho) * aot + (wvs * gr[0]) * grads[0]
-              + (wvs * gr[1]) * grads[1] + (wvs * gr[2]) * grads[2])
-    else:
-        e, vrho, _ = functional_eval_reference(functional, rho)
-        bt = (wt * vrho) * aot
-    exc = torch.sum(wt * e)
-    v = (aot @ bt.T)[:n, :n].to(dm.dtype)
+    with _full_f32_matmul():
+        dm_p = _pad_dm(dm, npad)
+        if ablate == "nophi":
+            phi_d = aot
+        elif phi_split or ablate == "phi3":
+            dmh, dml = _split(dm_p)
+            aoh, aol = _split(aot)
+            phi_d = dmh @ aoh + dmh @ aol + dml @ aoh
+        else:
+            phi_d = dm_p @ aot                               # (npad, gpad)
+        if ablate == "noprod":
+            rho = _rowsum(phi_d, 0, reduce)
+            gr = 2.0 * _rowsum(grads, 1, reduce)
+        else:
+            rho = _rowsum(phi_d * aot, 0, reduce)
+            if functional.needs_grad:
+                gr = 2.0 * _rowsum(grads * phi_d[None], 1, reduce)  # (3, gpad)
+        if functional.needs_grad:
+            sigma = torch.sum(gr * gr, dim=0)
+            if ablate == "nofunc":
+                e, vrho, vsigma = rho, rho, sigma
+            else:
+                e, vrho, vsigma = functional_eval_reference(functional, rho,
+                                                            sigma)
+        else:
+            e, vrho, _ = functional_eval_reference(functional, rho)
+        exc = _rowsum(wt * e, 0, reduce)
+        if ablate == "nov":  # no B^T and no V
+            v = torch.zeros((n, n), dtype=dm.dtype, device=dm.device)
+        else:
+            bt = (wt * vrho) * aot
+            if functional.needs_grad:
+                wvs = 2.0 * wt * vsigma
+                bt = (bt + (wvs * gr[0]) * grads[0] + (wvs * gr[1]) * grads[1]
+                      + (wvs * gr[2]) * grads[2])
+            v = (aot @ bt.T)[:n, :n].to(dm.dtype)
     return exc.to(dm.dtype), 0.5 * (v + v.T)
 
 
@@ -241,7 +348,9 @@ def _check_inputs(functional, dm, aot, wt, grads, n):
         raise ValueError("weights/gradient planes do not match aot")
 
 
-def _launch(functional: Functional, dm, aot, wt, grads, n: int):
+def _launch(functional: Functional, dm, aot, wt, grads, n: int,
+            phi_split: bool, ablate: str, reduce: str):
+    names = launch_names(functional, phi_split, ablate, reduce)
     _check_inputs(functional, dm, aot, wt, grads, n)
     npad, gpad = aot.shape
     dev = aot.device
@@ -259,28 +368,38 @@ def _launch(functional: Functional, dm, aot, wt, grads, n: int):
         gx, gy, gz = grads[0], grads[1], grads[2]
     with torch.cuda.device(dev):
         code = _lib().fused_xc(
-            functional.kind, n, npad, gpad, chunk, _ptr(dm_p), _ptr(aot),
-            _ptr(gx), _ptr(gy), _ptr(gz), _ptr(wt), _ptr(phi_bt), _ptr(e_part),
-            _ptr(v_part), _ptr(v_out), _ptr(e_out), _stream())
+            functional.kind, _variant_word(phi_split, ablate, reduce), n,
+            npad, gpad, chunk, _ptr(dm_p), _ptr(aot), _ptr(gx), _ptr(gy),
+            _ptr(gz), _ptr(wt), _ptr(phi_bt), _ptr(e_part), _ptr(v_part),
+            _ptr(v_out), _ptr(e_out), _stream())
     _check(code, "fused_xc launch")
-    LAUNCHES["K1" if functional.needs_grad else "K2"] += 1
+    for name in names:
+        LAUNCHES[name] += 1
     return e_out[0].to(dm.dtype), v_out.to(dm.dtype)
 
 
-def fused_xc(functional: Functional, dm, aot, wt, grads, n: int):
+def fused_xc(functional: Functional, dm, aot, wt, grads, n: int, *,
+             phi_split: bool = False, ablate: str = "", reduce: str = "f32"):
     """XC build from packed planes (pack_inputs) -> (E_xc, V_xc) in dm's
-    dtype.  CUDA tensors run K1/K2; CPU tensors run the plain version."""
+    dtype.  CUDA tensors launch the kernel of the variant (K1/K2 with no
+    keyword); CPU tensors run the plain version."""
     if aot.is_cuda:
-        return _launch(functional, dm, aot, wt, grads, n)
-    return fused_xc_reference(functional, dm, aot, wt, grads, n)
+        return _launch(functional, dm, aot, wt, grads, n, phi_split, ablate,
+                       reduce)
+    return fused_xc_reference(functional, dm, aot, wt, grads, n,
+                              phi_split=phi_split, ablate=ablate,
+                              reduce=reduce)
 
 
-def xc_step_fused(functional: Functional, dm, ao, weights, ao_grad=None):
+def xc_step_fused(functional: Functional, dm, ao, weights, ao_grad=None, *,
+                  phi_split: bool = False, ablate: str = "",
+                  reduce: str = "f32"):
     """Unpacked entry with the xc_step contract (packs on every call; the
-    port of xc_step_pallas)."""
+    port of xc_step_pallas, whose phi_split it takes)."""
     aot, wt, grads = pack_inputs(ao, weights, ao_grad,
                                  needs_grad=functional.needs_grad)
-    return fused_xc(functional, dm, aot, wt, grads, dm.shape[0])
+    return fused_xc(functional, dm, aot, wt, grads, dm.shape[0],
+                    phi_split=phi_split, ablate=ablate, reduce=reduce)
 
 
 def functional_eval(functional: Functional, rho, sigma=None):

@@ -5,8 +5,10 @@ Tolerances: plain f32 vs the f64 engine, the Pallas contract of
 tests/test_pallas.py (relative dE 5e-5, max dV 5e-5).  Plain f32 vs the
 Pallas kernel, relative dE 2e-5 and max dV 2e-5: on these inputs the
 Pallas kernel itself sits 1.2e-5 (relative E) and 1.4e-5 (V) from the f64
-engine -- its 2-pass bf16 row reductions carry ~2^-17 relative error
-(ROADMAP, "Reduction precision") -- while the plain f32 version sits
+engine -- V from its 3-pass bf16 V product, E from the interpret-mode dot
+that sums the bf16 hi and lo parts of w e sequentially in f32 over one
+49,152-point tile (ROADMAP, "Reduction precision";
+tests/test_torch_xc_variants.py) -- while the plain f32 version sits
 below 1e-7 and 1e-6; the bound is the Pallas kernel's own error with
 margin.  The same bounds hold at npad 72 on real Decane AO planes.  The
 CUDA kernel itself is tested in tests/test_torch_gpu.py.
