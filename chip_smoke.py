@@ -15,8 +15,9 @@ raises and the script exits non-zero without the final line):
      grid-1 points of C33H56N7O17P3S (npad 384), K1 (B3LYP) and K2 (LDA);
      bitwise equal results from two calls (deterministic reductions),
      finiteness of the device functional over extreme (rho, sigma), kernel
-     and plain times at the benzene and DHA shapes (median of 25 calls,
-     CUDA events)
+     and plain times at the benzene and DHA shapes, and K2's also at Decane
+     and npad 384 (median of 25 calls, CUDA events); K2's two kernels and
+     its reduce timed apart at DHA from one torch.profiler trace
      c. K3 (phi_D on bf16 tensor cores), GGA and LDA bodies, at every
         shape of 3a/3b: against the plain K3 (relative dE 1e-5, max dV
         5e-5) and the f64 engine (3e-4 and 3e-3, the JAX package's K3
@@ -215,6 +216,46 @@ def _time(kid, label, case, rec, key, variant=None):
           "(median of 25)", flush=True)
 
 
+# K2's further timed shapes (phase 3b) -> their record key prefix
+K2_TIMED = {"Decane grid 3": "decane_",
+            "C33H56N7O17P3S grid 1 first 65536 points": "npad384_"}
+
+
+def _profile_k2(case, rec, calls=10):
+    """K2's kernels timed apart from one torch.profiler trace of `calls`
+    calls: device ms per call of each kernel, printed and recorded."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from quantum_compute_dft_tpu_torch.engine import fused_xc
+
+    args = case[1:7]
+    for _ in range(3):
+        fused_xc.fused_xc(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fused_xc.fused_xc(*args)
+        torch.cuda.synchronize()
+    split = {}
+    for ev in prof.key_averages():
+        m = re.search(r"(xc_lda_\w+|xc_reduce_kernel)", ev.key)
+        dev_us = getattr(ev, "device_time_total", 0) or getattr(
+            ev, "cuda_time_total", 0)
+        if m and dev_us:
+            split[m.group(1)] = dev_us / 1e3 / calls
+    if not split:
+        raise AssertionError("K2 profile: the trace shows no device time")
+    rec["K2"]["dha_split_ms"] = split
+    print(f"  K2 {case[0]} kernel split (torch.profiler, device ms per call, "
+          f"{calls} calls): " + ", ".join(f"{k} {v:.4f}"
+                                          for k, v in split.items()),
+          flush=True)
+
+
 def _df_shapes(dev):
     """The density-fitting-size planes: (label, dm, ao, w, grad) f64 on the
     card with a seeded perturbed SAD density."""
@@ -296,6 +337,10 @@ def phase_kernels(dev):
             _compare(case[0], kid, case, rec)
             if label.startswith("DHA"):
                 _time(kid, f"DHA {fname}", case, rec, "dha_")
+                if kid == "K2":
+                    _profile_k2(case, rec)
+            elif kid == "K2" and label in K2_TIMED:
+                _time(kid, label, case, rec, K2_TIMED[label])
             cases.append(case)
     _phase("3b kernels, density-fitting shapes", t1, "K1/K2 match the plain "
            "version and the f64 engine at npad 72, 152 and 384")

@@ -15,16 +15,13 @@
 //   B^T = w vrho AO + 2 w vsigma sum_k grad_k rho dAO_k
 //   V   = AO B ;  V_out = (V + V^T) / 2
 //
-// What bounds it on this card.  Two products of 2 npad^2 FLOPs per point
-// (phi_D and V) in plain FP32 FMA: at DHA (npad 152, ~635k points) ~29
-// GFLOP each, against 67 TFLOP/s of FP32 FMA outside the tensor cores; the
-// planes are ~0.4 GB (AO + 3 gradients) plus phi_D / B^T written and read
-// once, ~0.2 ms of HBM at 3.35 TB/s.  So at density-fitting sizes the call
-// is bound by FP32 FMA throughput; at the in-core sizes (npad <= 64) by
-// memory traffic, the per-point functional (~300 dependent f32 ops with
-// libm calls) and launch overhead.
-//
-// Design (four kernels, deterministic, any npad that is a multiple of 8):
+// K1, K3 and the variants (the GGA body, and any variant of either body).
+// What bounds them on this card: two products of 2 npad^2 FLOPs per point
+// (phi_D and V) in plain FP32 FMA (K3: phi_D on bf16 tensor cores): at DHA
+// (npad 152, ~635k points) ~29 GFLOP each against 67 TFLOP/s of FP32 FMA;
+// the planes are ~0.4 GB (AO + 3 gradients) plus phi_D / B^T written and
+// read once.  Design (four kernels, deterministic, any npad that is a
+// multiple of 8):
 //   1. xc_phi_kernel: phi_D = D . AO as a tiled product, one 64 (mu) x 64
 //      (points) output tile per block through shared-memory stages of 32
 //      nu, a 4 x 4 register tile per thread; each output sums nu in order
@@ -44,13 +41,61 @@
 //   but D and the AO tile are split into bf16 hi + lo while they are staged
 //   and phi_D = D_h AO_h + D_h AO_l + D_l AO_h runs on the tensor cores
 //   (mma.sync m16n8k16, f32 accumulation); see its note.
+//
+// K2 (the LDA body, pallas_xc.py:269-291: LDA, and HF through the zero
+// functional; no variant).  There B^T = (w vrho) AO (:290), so V = AO
+// diag(s) AO^T with s = w vrho, and V is symmetric.  K2 ran the four
+// kernels above until it measured 4.5-5.0 ms at DHA against 3.8-5.8 ms for
+// its plain version (cuBLAS SGEMM), bound by FP32 FMA products at ~22
+// TFLOP/s (8 shared loads per 16 FMAs), padding to 64-row tiles (ldv 192
+// at npad 152: 26% more phi_D work, 60% more V), all of V computed though
+// it is symmetric, and ~5 GB of HBM traffic (AO re-read per row tile,
+// phi_D written and re-read, B^T written and re-read per V tile).  Now it is
+// two kernels and the reduce, on the tensor cores, with no phi_D or B^T
+// plane in HBM:
+//   1. xc_lda_rho_kernel / xc_lda_rho_res_kernel: per 64-point column tile,
+//      phi_D^T = AO^T D^T (m = points, n = mu in 8-wide tiles, so no row
+//      padding; k = nu) with all npad mu in one block's registers, rho from
+//      the accumulators against the staged AO tile (shuffles, then shared
+//      memory, fixed order), the functional (xc_functional.cuh), s_g = w
+//      vrho and the tile's E partial.  AO is read from HBM once.  Where D
+//      fits in shared memory (npad <= 176) it stays resident in a
+//      persistent block of two independent 8-warp groups; above, D streams
+//      in 32-deep slabs through a cp.async ring.
+//   2. xc_lda_v_kernel: V = AO diag(s) AO^T over the 32 x 32 output tiles on
+//      or above the diagonal (16 x 8 sub-tiles wholly below it or beyond
+//      npad skipped: npad 152 computes 12,800 entries, not 192^2), one tile
+//      a warp and up to 16 a block, split-K over grid chunks (one tile block
+//      per chunk up to npad 160; AO read once there, once per tile block
+//      above).  Both operands are AO rows with the grid axis as k, as the
+//      plane is stored, so one staged slab feeds both; s_g AO is formed at
+//      fragment load.
+//   3. xc_reduce_kernel<true>: sums the chunk partials in chunk order and
+//      mirrors the upper triangle; E partials in a fixed order.
+// Both products run as 3 x TF32 on mma.sync m16n8k8 (hi = tf32(x), lo =
+// x - hi; hi.lo + lo.hi + hi.hi, f32 accumulation, per-stage partial sums):
+// f32-class (~2^-22), as the TPU kernel's phi_D at HIGHEST, because a
+// coarser phi_D feeds the density and was measured to cost SCF cycles
+// (pallas_xc.py:131-141: benzene 25 -> 31 with the 3-pass bf16 phi_D).  V
+// takes the same path (the TPU's own V was the 3-pass bf16 split).  At DHA
+// (npad 152, gpad 633,856): MMA work 87.9 GFLOP (phi_D) + 48.7 GFLOP (V),
+// HBM ~0.82 GB (AO read twice, 771 MB; s, w; 13 MB of V partials written,
+// 24 MB read by the reduce).  What bounds it (H100, 700 W, chip_smoke.py's
+// profiler split): rho 0.73 ms, V 0.47 ms, reduce 0.04 ms of ~1.35; the
+// products run at ~120 (rho) and ~105 (V) TFLOP/s of the ~320 that
+// mma.sync TF32 reaches on this card with no operand traffic.  Measured by
+// ablation: the fragment loads and splits (shared loads, integer rounding)
+// and the issue of three mma per product take the rest; the functional is
+// ~0.04 ms.  wgmma, which reads both operands from shared memory, is the
+// next step for V (both operands are K-major, as tf32 wgmma needs).
+//
 // No float atomics anywhere: every sum runs in the same order on every call,
-// so SCF trajectories are reproducible run to run.  The wrapper picks the
-// chunk so that tiles x chunks stays near a fixed block count, which bounds
-// the partial buffer (~32 MB) whatever npad and the grid size are.  The TPU
-// kernel's bf16 splits, ones-row matmul reductions, (8, tile/8) subtiling
-// and npad-dependent grid tile are MXU / VMEM devices and are not carried
-// over.
+// so SCF trajectories are reproducible run to run.  The wrappers pick the
+// chunks so that tiles x chunks stays near a fixed block count, which
+// bounds the partial buffers (~32 MB) whatever npad and the grid size are.
+// The TPU kernel's bf16 splits (but K3's), ones-row matmul reductions,
+// (8, tile/8) subtiling and npad-dependent grid tile are MXU / VMEM devices
+// and are not carried over.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC fused_xc.cu   (never --use_fast_math)
@@ -261,6 +306,512 @@ xc_phi_split_kernel(int npad, int gpad, const float* __restrict__ dm,
   }
 }
 
+// ---- K2: the LDA body on TF32 tensor cores (xc_lda_rho_kernel,
+// xc_lda_v_kernel; the design is in the header note) ----
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// hi = tf32(x) rounded to nearest, ties away (cvt.rna's rounding, done on
+// the bits: two integer ops instead of a conversion, which measured 0.14 ms
+// of the rho kernel and 0.14 ms of the V kernel at DHA), lo = x - hi, exact
+// in f32.  The tensor core reads only a tf32 operand's top 19 bits, so lo
+// enters truncated to tf32.  hi lo products are exact, so hi.hi + hi.lo +
+// lo.hi carries ~2^-22 of relative error (lo's truncation, the dropped
+// lo.lo); finite inputs well inside the f32 range.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c += a b: m16n8k8, tf32 operands, f32 accumulation.  A product as 3 x
+// TF32 is three of these into one accumulator, small terms first (hi.lo,
+// lo.hi, hi.hi); the kernels issue each of the three over all of a warp's
+// accumulators before the next, since back to back into one accumulator
+// every mma waits out the one before (measured: ~25% of the mma.sync TF32
+// rate of ~320 TFLOP/s at DHA).  Fragments (g = lane
+// / 4, t = lane % 4): a = {(g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)},
+// b = {(k t, n g), (k t + 4, n g)}, c = {(g, 2t), (g, 2t + 1), (g + 8, 2t),
+// (g + 8, 2t + 1)}.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+
+constexpr int kLdaCols = 64;                 // grid points of a rho column tile
+constexpr int kLdaColStride = kLdaCols + 8;  // AO tile row stride (floats)
+constexpr int kLdaNb = 5;                    // n8 (mu) tiles per warp per pass
+constexpr int kLdaPass = 4 * kLdaNb;         // n8 tiles per pass (four warp columns)
+constexpr int kSlabStride = kTk + 4;         // row stride of 32-deep k slabs
+constexpr int kVTile = 32;                   // V output tile edge (one warp)
+constexpr int kVWarps = 16;                  // V tiles per block
+constexpr int kRhoStages = 3;                // cp.async ring depth, rho kernel
+constexpr int kVStages = 4;                  // and V kernel
+constexpr int kResThreads = 512;             // resident-D rho kernel: 2 groups of 8 warps
+// dynamic shared memory a block may take beside the rho kernels' 2 KB of
+// static scratch (227 KB a block on the H100)
+constexpr size_t kMaxDynSmem = 232448 - 2048;
+
+// n8 tiles of one rho pass: passes split the npad / 8 tiles evenly
+__host__ __device__ inline int lda_pass_tiles(int npad) {
+  const int ntn = npad / 8;
+  const int npass = (ntn + kLdaPass - 1) / kLdaPass;
+  return (ntn + npass - 1) / npass;
+}
+
+// streaming rho kernel: the AO tile and a ring of D slabs
+__host__ __device__ inline size_t lda_rho_smem(int npad) {
+  return sizeof(float) * ((size_t)npad * kLdaColStride +
+                          kRhoStages * (size_t)lda_pass_tiles(npad) * 8 * kSlabStride);
+}
+
+// resident-D rho kernel: D at row stride npad + 4 (= 4 mod 8: a warp's B
+// fragment loads hit 32 distinct banks) and one AO tile per group; fits
+// up to npad 176
+__host__ __device__ inline size_t lda_rho_res_smem(int npad) {
+  return sizeof(float) * ((size_t)npad * (npad + 4) +
+                          2 * (size_t)npad * kLdaColStride);
+}
+
+__host__ __device__ inline size_t lda_v_smem(int npad) {
+  const int rows = (npad + 15) / 16 * 16;
+  return sizeof(float) * (kVStages * ((size_t)rows * kSlabStride + kTk));
+}
+
+// barrier over one group of 256 threads (id 0 with 256 threads is the
+// whole block of the streaming kernel)
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id));
+}
+
+// ---- the rho body, shared by its two kernels.  A group of 8 warps owns
+// one 64-point column tile of AO, staged as ao_s[nu][point] (stride 72: a
+// warp's A fragment loads hit banks 8t + g, all distinct).  The mma runs
+// with m = points, n = mu (n8 tiles: npad % 8 == 0, no padding) and k = nu,
+// B = D[mu][nu].  Warp (wm, wn) = (warp % 2, warp / 2) owns m16 tiles 2 wm
+// and 2 wm + 1 (points p0 = 32 wm + g ..) and a quarter of each pass's n8
+// tiles; a pass covers <= 20 n8 tiles (160 mu).  phi_D stays in registers.
+
+// the n8 tiles [first, first + mine) of warp column wn in a pass of cnt
+__device__ __forceinline__ void pass_share(int cnt, int wn, int& first,
+                                           int& mine) {
+  const int q = cnt / 4, rem = cnt % 4;
+  mine = q + (wn < rem ? 1 : 0);
+  first = wn * q + min(wn, rem);
+}
+
+// acc += phi_D^T over one stage of kw <= 32 nu.  pa = &ao_s[k0 + t][p0];
+// pb = &D[mu of the warp's first n8 tile + g][k0 + t], row stride bs.  The
+// stage's products are summed apart and then added (stage_fma's reason).
+__device__ __forceinline__ void rho_stage(const float* pa, const float* pb,
+                                          int bs, int kw, int mine,
+                                          float (&acc)[2][kLdaNb][4]) {
+  float s[2][kLdaNb][4] = {};
+  for (int kk = 0; kk < kw; kk += 8) {
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float* a = pa + kk * kLdaColStride + 16 * i;
+      split_tf32(a[0], ah[i][0], al[i][0]);
+      split_tf32(a[8], ah[i][1], al[i][1]);
+      split_tf32(a[4 * kLdaColStride], ah[i][2], al[i][2]);
+      split_tf32(a[4 * kLdaColStride + 8], ah[i][3], al[i][3]);
+    }
+    uint32_t bh[kLdaNb][2];  // lo parts are used at once: one pass
+#pragma unroll
+    for (int j = 0; j < kLdaNb; ++j) {
+      if (j < mine) {
+        const float* b = pb + j * 8 * bs + kk;
+        uint32_t bl[2];
+        split_tf32(b[0], bh[j][0], bl[0]);
+        split_tf32(b[4], bh[j][1], bl[1]);
+        mma_tf32(s[0][j], ah[0], bl[0], bl[1]);
+        mma_tf32(s[1][j], ah[1], bl[0], bl[1]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kLdaNb; ++j)
+      if (j < mine) {
+        mma_tf32(s[0][j], al[0], bh[j][0], bh[j][1]);
+        mma_tf32(s[1][j], al[1], bh[j][0], bh[j][1]);
+      }
+#pragma unroll
+    for (int j = 0; j < kLdaNb; ++j)
+      if (j < mine) {
+        mma_tf32(s[0][j], ah[0], bh[j][0], bh[j][1]);
+        mma_tf32(s[1][j], ah[1], bh[j][0], bh[j][1]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < kLdaNb; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] += s[i][j][r];
+}
+
+// rho += sum over a finished pass's mu of phi_D AO, from the accumulators
+// (fragment rows mu0 + 8 j, mu0 = 8 (pass base + first) + 2 t)
+__device__ __forceinline__ void rho_fold(const float* ao_s, int p0, int mu0,
+                                         int mine,
+                                         const float (&acc)[2][kLdaNb][4],
+                                         float (&rho)[2][2]) {
+#pragma unroll
+  for (int j = 0; j < kLdaNb; ++j) {
+    if (j < mine) {
+      const float* a0 = ao_s + (size_t)(mu0 + 8 * j) * kLdaColStride + p0;
+      const float* a1 = a0 + kLdaColStride;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        rho[i][0] += acc[i][j][0] * a0[16 * i] + acc[i][j][1] * a1[16 * i];
+        rho[i][1] += acc[i][j][2] * a0[16 * i + 8] + acc[i][j][3] * a1[16 * i + 8];
+      }
+    }
+  }
+}
+
+// The tile's rho (over the four lanes of a row group by shuffles, then the
+// four warp columns through red_s, in a fixed order), the functional,
+// s_g = w vrho and the tile's E partial (a fixed tree).  gtid: the thread
+// in its group; bar: the group's barrier.
+template <int KIND>
+__device__ __forceinline__ void rho_finish(float (&rho)[2][2],
+                                           float (*red_s)[kLdaCols], int gtid,
+                                           int wn, int t, int p0, int tile,
+                                           int bar, const float* wt,
+                                           float* s_out, float* e_part) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rho[i][h] += __shfl_xor_sync(0xffffffffu, rho[i][h], 1);
+      rho[i][h] += __shfl_xor_sync(0xffffffffu, rho[i][h], 2);
+      if (t == 0) red_s[wn][p0 + 16 * i + 8 * h] = rho[i][h];
+    }
+  bar_sync(bar);
+  const int g = tile * kLdaCols + gtid;
+  float we = 0.f;
+  if (gtid < kLdaCols) {
+    const float r = (red_s[0][gtid] + red_s[1][gtid]) +
+                    (red_s[2][gtid] + red_s[3][gtid]);
+    float e, vr, vs;
+    xc::eval_point<KIND>(r, 0.f, &e, &vr, &vs);
+    const float w = wt[g];
+    s_out[g] = w * vr;
+    we = __fmul_rn(w, e);
+  }
+  bar_sync(bar);
+  if (gtid < kLdaCols) red_s[0][gtid] = we;
+  bar_sync(bar);
+  for (int h = kLdaCols / 2; h > 0; h >>= 1) {
+    if (gtid < h) red_s[0][gtid] += red_s[0][gtid + h];
+    bar_sync(bar);
+  }
+  if (gtid == 0) e_part[tile] = red_s[0][0];
+}
+
+// xc_lda_rho_kernel (streaming D, any npad <= 384): one block of 8 warps per
+// column tile.  D streams through a ring of 3 slabs (cp.async, loads issued
+// 2 stages ahead; slab rows = the pass's mu, stride 36: B fragment loads hit
+// banks 4g + t); the AO rows of each 32-deep stage arrive with the first
+// pass's slab and stay, for the later passes and the epilogue.  npad 384
+// takes 3 passes, npad <= 160 one.
+template <int KIND>
+__global__ void __launch_bounds__(256, 2)
+xc_lda_rho_kernel(int npad, int gpad, const float* __restrict__ dm,
+                  const float* __restrict__ aot, const float* __restrict__ wt,
+                  float* __restrict__ s_out, float* __restrict__ e_part) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float red_s[4][kLdaCols];
+  const int per = lda_pass_tiles(npad);
+  float* ao_s = smem;                                // [npad][72]
+  float* d_s = smem + (size_t)npad * kLdaColStride;  // [3][per * 8][36]
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = warp % 2, wn = warp / 2;
+  const int p0 = wm * 32 + g;
+  const int col0 = blockIdx.x * kLdaCols;  // gpad % 1024 == 0
+  const int ntn = npad / 8;
+  const int nks = (npad + kTk - 1) / kTk;
+  const int nsteps = (ntn + per - 1) / per * nks;
+
+  // one step = (pass, 32-deep k stage): its D slab, rows [base 8, +cnt 8),
+  // and in the first pass the stage's AO rows
+  auto stage = [&](int step) {
+    const int base = step / nks * per, k0 = step % nks * kTk;
+    const int rows = min(per, ntn - base) * 8;
+    const int kw = min(kTk, npad - k0);
+    const int kc = kw / 4;  // 16-byte pieces per D row
+    float* dst = d_s + (step % kRhoStages) * per * 8 * kSlabStride;
+    for (int i = tid; i < rows * kc; i += 256) {
+      const int r = i / kc, c = i % kc * 4;
+      cp_async16(dst + r * kSlabStride + c,
+                 dm + (size_t)(base * 8 + r) * npad + k0 + c);
+    }
+    if (step < nks) {
+      for (int i = tid; i < kw * (kLdaCols / 4); i += 256) {
+        const int r = k0 + i / (kLdaCols / 4), c = i % (kLdaCols / 4) * 4;
+        cp_async16(ao_s + r * kLdaColStride + c,
+                   aot + (size_t)r * gpad + col0 + c);
+      }
+    }
+  };
+  for (int p = 0; p < kRhoStages - 1; ++p) {
+    if (p < nsteps) stage(p);
+    cp_async_commit();
+  }
+
+  float acc[2][kLdaNb][4];
+  float rho[2][2] = {};  // points p0 + 16 i (+ 8)
+  for (int step = 0; step < nsteps; ++step) {
+    cp_async_wait<kRhoStages - 2>();
+    __syncthreads();  // this stage is in; every warp is done with step - 1
+    if (step + kRhoStages - 1 < nsteps) stage(step + kRhoStages - 1);
+    cp_async_commit();
+    const int ks = step % nks, k0 = ks * kTk;
+    const int base = step / nks * per;
+    int first, mine;
+    pass_share(min(per, ntn - base), wn, first, mine);
+    if (ks == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < kLdaNb; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+    }
+    const float* db = d_s + (step % kRhoStages) * per * 8 * kSlabStride;
+    rho_stage(ao_s + (size_t)(k0 + t) * kLdaColStride + p0,
+              db + (first * 8 + g) * kSlabStride + t, kSlabStride,
+              min(kTk, npad - k0), mine, acc);
+    if (ks == nks - 1) rho_fold(ao_s, p0, (base + first) * 8 + 2 * t, mine, acc, rho);
+  }
+  rho_finish<KIND>(rho, red_s, tid, wn, t, p0, blockIdx.x, 0, wt, s_out,
+                   e_part);
+}
+
+// xc_lda_rho_res_kernel (resident D, npad <= 176): persistent, one block of
+// two 8-warp groups per SM.  D is staged once per block and stays; each
+// group walks its own column tiles (tile = 2 block + group, then + 2 grid),
+// staging the tile's AO with one cp.async wait and its own barrier, so no
+// barrier or D copy sits inside the product.  Group 0's first tile loads
+// with D, group 1's after, so one group's loads and functional overlap the
+// other's products.  Same products and sums as xc_lda_rho_kernel.
+template <int KIND>
+__global__ void __launch_bounds__(kResThreads, 1)
+xc_lda_rho_res_kernel(int npad, int gpad, const float* __restrict__ dm,
+                      const float* __restrict__ aot,
+                      const float* __restrict__ wt, float* __restrict__ s_out,
+                      float* __restrict__ e_part) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float red_s[2][4][kLdaCols];
+  const int ds = npad + 4;
+  const float* d_s = smem;  // [npad][npad + 4]
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int grp = warp / 8, gtid = tid % 256, wl = warp % 8;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = wl % 2, wn = wl / 2;
+  const int p0 = wm * 32 + g;
+  float* ao_s = smem + (size_t)npad * ds + (size_t)grp * npad * kLdaColStride;
+  const int ntile = gpad / kLdaCols, ntn = npad / 8;
+  const int per = lda_pass_tiles(npad);
+  const int nks = (npad + kTk - 1) / kTk;
+
+  auto load_ao = [&](int tile) {
+    for (int i = gtid; i < npad * (kLdaCols / 4); i += 256) {
+      const int r = i / (kLdaCols / 4), c = i % (kLdaCols / 4) * 4;
+      cp_async16(ao_s + r * kLdaColStride + c,
+                 aot + (size_t)r * gpad + (size_t)tile * kLdaCols + c);
+    }
+  };
+  for (int i = tid; i < npad * (npad / 4); i += kResThreads) {
+    const int r = i / (npad / 4), c = i % (npad / 4) * 4;
+    cp_async16(smem + (size_t)r * ds + c, dm + (size_t)r * npad + c);
+  }
+  int tile = blockIdx.x * 2 + grp;
+  if (grp == 0 && tile < ntile) load_ao(tile);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  for (bool first_tile = true; tile < ntile;
+       tile += 2 * gridDim.x, first_tile = false) {
+    if (grp == 1 || !first_tile) {
+      load_ao(tile);
+      cp_async_commit();
+      cp_async_wait<0>();
+      bar_sync(1 + grp);
+    }
+    float rho[2][2] = {};
+    for (int base = 0; base < ntn; base += per) {
+      int first, mine;
+      pass_share(min(per, ntn - base), wn, first, mine);
+      float acc[2][kLdaNb][4] = {};
+      for (int k0 = 0; k0 < npad; k0 += kTk)
+        rho_stage(ao_s + (size_t)(k0 + t) * kLdaColStride + p0,
+                  d_s + (size_t)((base + first) * 8 + g) * ds + k0 + t, ds,
+                  min(kTk, npad - k0), mine, acc);
+      rho_fold(ao_s, p0, (base + first) * 8 + 2 * t, mine, acc, rho);
+    }
+    rho_finish<KIND>(rho, red_s[grp], gtid, wn, t, p0, tile, 1 + grp, wt,
+                     s_out, e_part);
+  }
+}
+
+// V tile (r, c) of warp l (l = 0, 1, ..: the upper triangle of the T x T
+// grid of 32 x 32 tiles, row by row; engine/fused_xc.py::lda_v_tiles)
+__device__ __forceinline__ void upper_tile(int l, int T, int& r, int& c) {
+  r = 0;
+  while (l >= T - r) {
+    l -= T - r;
+    ++r;
+  }
+  c = r + l;
+}
+
+// xc_lda_v_kernel: V_part[chunk] = AO diag(s) AO^T over one grid chunk, for
+// the 32 x 32 output tiles on or above the diagonal, one tile per warp (up
+// to 16 a block).  Both operands are AO rows with the grid axis as k, so
+// one staged slab ([row][point], stride 36, banks 4g + t) feeds both and
+// the B operand s_g AO is formed at fragment load: no B^T plane exists.
+// Slabs of 32 points stream through a ring of 4 (cp.async, loads issued 3
+// slabs ahead).
+// Inside a tile, 16 x 8 sub-tiles wholly below the diagonal or beyond npad
+// are skipped.  v_part is (nchunk, ldv, ldv), ldv = 32 T; only the upper
+// sub-tiles are written (the reduce reads nothing else).
+__global__ void __launch_bounds__(kVWarps * 32, 1)
+xc_lda_v_kernel(int npad, int gpad, int chunk, int ldv,
+                const float* __restrict__ aot, const float* __restrict__ s_in,
+                float* __restrict__ v_part) {
+  extern __shared__ __align__(16) float smem[];
+  const int rows = (npad + 15) / 16 * 16;
+  float* a_s = smem;                                          // [4][rows][36]
+  float* s_s = smem + kVStages * (size_t)rows * kSlabStride;  // [4][32]
+  const int nthr = blockDim.x;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int T = ldv / kVTile;
+  const int l = blockIdx.x * kVWarps + warp;
+  const bool active = l < T * (T + 1) / 2;
+  int tr = 0, tc = 0;
+  if (active) upper_tile(l, T, tr, tc);
+  const int g0 = blockIdx.y * chunk;
+  const int nsl = (min(g0 + chunk, gpad) - g0) / kTk;  // chunk % 32 == 0
+
+  // rows npad..rows of every buffer stay zero (never staged)
+  for (int i = tid; i < kVStages * (rows - npad) * kSlabStride; i += nthr) {
+    const int b = i / ((rows - npad) * kSlabStride);
+    const int o = i % ((rows - npad) * kSlabStride);
+    a_s[(size_t)b * rows * kSlabStride + (size_t)npad * kSlabStride + o] = 0.f;
+  }
+  auto stage = [&](int sl) {
+    const int k0 = g0 + sl * kTk;
+    float* dst = a_s + (size_t)(sl % kVStages) * rows * kSlabStride;
+    for (int i = tid; i < npad * 8 + 8; i += nthr) {
+      if (i < npad * 8) {
+        const int r = i / 8, c = i % 8 * 4;
+        cp_async16(dst + r * kSlabStride + c, aot + (size_t)r * gpad + k0 + c);
+      } else {
+        const int c = (i - npad * 8) * 4;
+        cp_async16(s_s + (sl % kVStages) * kTk + c, s_in + k0 + c);
+      }
+    }
+  };
+  for (int p = 0; p < kVStages - 1; ++p) {
+    if (p < nsl) stage(p);
+    cp_async_commit();
+  }
+
+  const int m_base = tr * kVTile, n_base = tc * kVTile;
+  bool on[2][4];  // which 16 x 8 sub-tiles this warp computes
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m0 = m_base + 16 * i, n0 = n_base + 8 * j;
+      on[i][j] = active && m0 < npad && n0 < npad && n0 + 8 > m0;
+    }
+  float acc[2][4][4] = {};
+  for (int sl = 0; sl < nsl; ++sl) {
+    cp_async_wait<kVStages - 2>();
+    __syncthreads();  // this slab is in; every warp is done with sl - 1
+    if (sl + kVStages - 1 < nsl) stage(sl + kVStages - 1);
+    cp_async_commit();
+    if (active) {
+      const float* ab = a_s + (size_t)(sl % kVStages) * rows * kSlabStride;
+      const float* sb = s_s + (sl % kVStages) * kTk;
+      float st[2][4][4] = {};  // this slab's partial sums
+#pragma unroll
+      for (int kk = 0; kk < kTk; kk += 8) {
+        uint32_t ah[2][4] = {}, al[2][4] = {}, bh[4][2] = {}, bl[4][2] = {};
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          if (!(on[i][0] | on[i][1] | on[i][2] | on[i][3])) continue;
+          const float* pa = ab + (m_base + 16 * i + g) * kSlabStride + kk + t;
+          split_tf32(pa[0], ah[i][0], al[i][0]);
+          split_tf32(pa[8 * kSlabStride], ah[i][1], al[i][1]);
+          split_tf32(pa[4], ah[i][2], al[i][2]);
+          split_tf32(pa[8 * kSlabStride + 4], ah[i][3], al[i][3]);
+        }
+        const float s0 = sb[kk + t], s1 = sb[kk + t + 4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (!(on[0][j] | on[1][j])) continue;
+          const float* pb = ab + (n_base + 8 * j + g) * kSlabStride + kk + t;
+          split_tf32(__fmul_rn(s0, pb[0]), bh[j][0], bl[j][0]);
+          split_tf32(__fmul_rn(s1, pb[4]), bh[j][1], bl[j][1]);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (on[i][j]) mma_tf32(st[i][j], ah[i], bl[j][0], bl[j][1]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (on[i][j]) mma_tf32(st[i][j], al[i], bh[j][0], bh[j][1]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (on[i][j]) mma_tf32(st[i][j], ah[i], bh[j][0], bh[j][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[i][j][r] += st[i][j][r];
+    }
+  }
+  float* out = v_part + (size_t)blockIdx.y * ldv * ldv;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (!on[i][j]) continue;
+      const int row = m_base + 16 * i + g, col = n_base + 8 * j + 2 * t;
+      *reinterpret_cast<float2*>(&out[(size_t)row * ldv + col]) =
+          make_float2(acc[i][j][0], acc[i][j][1]);
+      *reinterpret_cast<float2*>(&out[(size_t)(row + 8) * ldv + col]) =
+          make_float2(acc[i][j][2], acc[i][j][3]);
+    }
+}
+
 // A sum over mu of one point's terms: plain f32, or (kSplit2) the bf16 hi
 // and lo parts of each term summed apart, as the TPU kernel's 2-pass
 // selector matmuls form its row sums (pallas_xc.py:187-197).
@@ -276,7 +827,7 @@ __device__ __forceinline__ void row_add(float x, float& hi, float& lo) {
 }
 
 // Per-point pass: phi_bt holds phi_D on entry and B^T on exit.  VAR holds
-// at most one of the kPointBits; VAR = 0 is K1/K2.
+// at most one of the kPointBits; VAR = 0 is K1's (and K3's) pass.
 template <int KIND, int VAR>
 __global__ void __launch_bounds__(kPointBlock)
 xc_point_kernel(int npad, int gpad, const float* __restrict__ aot,
@@ -405,6 +956,9 @@ xc_v_partial_kernel(int npad, int gpad, int chunk, int ldv,
 }
 
 // V_out (nao x nao) = sym(sum_c V_part[c]); the last block reduces E.
+// kUpper (K2): only the upper triangle of each V_part holds V, which is
+// mirrored; otherwise V_out = (V + V^T) / 2.
+template <bool kUpper>
 __global__ void __launch_bounds__(kReduceBlock)
 xc_reduce_kernel(int nao, int nchunk, int ldv, int npart_e,
                  const float* __restrict__ v_part,
@@ -428,12 +982,18 @@ xc_reduce_kernel(int nao, int nchunk, int ldv, int npart_e,
   if (o >= nao * nao) return;
   const int mu = o / nao, nu = o % nao;
   float a = 0.f, b = 0.f;
-  for (int c = 0; c < nchunk; ++c) {
-    const float* p = v_part + (size_t)c * ldv * ldv;
-    a += p[(size_t)mu * ldv + nu];
-    b += p[(size_t)nu * ldv + mu];
+  if constexpr (kUpper) {
+    const size_t u = (size_t)min(mu, nu) * ldv + max(mu, nu);
+    for (int c = 0; c < nchunk; ++c) a += v_part[(size_t)c * ldv * ldv + u];
+    v_out[o] = a;
+  } else {
+    for (int c = 0; c < nchunk; ++c) {
+      const float* p = v_part + (size_t)c * ldv * ldv;
+      a += p[(size_t)mu * ldv + nu];
+      b += p[(size_t)nu * ldv + mu];
+    }
+    v_out[o] = 0.5f * (a + b);
   }
-  v_out[o] = 0.5f * (a + b);
 }
 
 template <int KIND>
@@ -478,6 +1038,40 @@ cudaError_t launch_point_var(int var, int npad, int gpad, const float* aot,
   return cudaErrorInvalidValue;
 }
 
+// The rho pass: resident D where it fits in shared memory (npad <= 176),
+// else streaming D
+template <int KIND>
+cudaError_t launch_lda_rho(int npad, int gpad, const float* dm, const float* aot,
+                           const float* wt, float* s, float* e_part,
+                           cudaStream_t stream) {
+  const int ntile = gpad / kLdaCols;
+  size_t smem = lda_rho_res_smem(npad);
+  cudaError_t err;
+  if (smem <= kMaxDynSmem) {
+    int dev, nsm;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(xc_lda_rho_res_kernel<KIND>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+    if (err != cudaSuccess) return err;
+    const int nblk = (ntile + 1) / 2 < nsm ? (ntile + 1) / 2 : nsm;
+    xc_lda_rho_res_kernel<KIND><<<nblk, kResThreads, smem, stream>>>(
+        npad, gpad, dm, aot, wt, s, e_part);
+    return cudaGetLastError();
+  }
+  smem = lda_rho_smem(npad);
+  err = cudaFuncSetAttribute(xc_lda_rho_kernel<KIND>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  xc_lda_rho_kernel<KIND><<<ntile, 256, smem, stream>>>(npad, gpad, dm, aot,
+                                                         wt, s, e_part);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -487,10 +1081,10 @@ extern "C" {
 // dm (npad, npad), aot/gx/gy/gz/phi_bt (npad, gpad), wt (gpad),
 // e_part (gpad / 128), v_part (ceil(gpad / chunk), ldv, ldv) with
 // ldv = 64 ceil(npad / 64), v_out (nao, nao), e_out (1); gx/gy/gz may be
-// null for kinds 0 and 3.  variant: 0 for K1/K2, else the k* bits above
+// null for kinds 0 and 3.  variant: 0 for K1, else the k* bits above
 // (kPhiSplit and kNoPhi exclusive, at most one point bit, the ablations
-// for kinds 1 and 2 only).  Returns the CUDA error code of the launches
-// (0 on success).
+// for kinds 1 and 2 only); K2 (kinds 0 and 3, variant 0) is fused_xc_lda.
+// Returns the CUDA error code of the launches (0 on success).
 int fused_xc(int kind, int variant, int nao, int npad, int gpad, int chunk,
              const float* dm, const float* aot, const float* gx,
              const float* gy, const float* gz, const float* wt, float* phi_bt,
@@ -503,7 +1097,8 @@ int fused_xc(int kind, int variant, int nao, int npad, int gpad, int chunk,
       (variant & ~(kPhiSplit | kNoPhi | kPointBits)) != 0 ||
       ((variant & kPhiSplit) && (variant & kNoPhi)) ||
       (point & (point - 1)) != 0 ||
-      ((variant & (kNoPhi | kNoProd | kNoFunc | kNoV)) && kind != 1 && kind != 2))
+      ((variant & (kNoPhi | kNoProd | kNoFunc | kNoV)) && kind != 1 && kind != 2) ||
+      (variant == 0 && (kind == 0 || kind == 3)))
     return (int)cudaErrorInvalidValue;
   const int ntile = (npad + kTile - 1) / kTile;
   const int ldv = ntile * kTile;
@@ -533,7 +1128,7 @@ int fused_xc(int kind, int variant, int nao, int npad, int gpad, int chunk,
   if (variant & kNoV) {  // V stays zero; the one reduce block sums E
     err = cudaMemsetAsync(v_out, 0, sizeof(float) * nao * (size_t)nao, stream);
     if (err != cudaSuccess) return (int)err;
-    xc_reduce_kernel<<<1, kReduceBlock, 0, stream>>>(
+    xc_reduce_kernel<false><<<1, kReduceBlock, 0, stream>>>(
         nao, nchunk, ldv, gpad / kPointBlock, v_part, e_part, v_out, e_out);
     return (int)cudaGetLastError();
   }
@@ -542,8 +1137,47 @@ int fused_xc(int kind, int variant, int nao, int npad, int gpad, int chunk,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int nblk = (nao * nao + kReduceBlock - 1) / kReduceBlock + 1;
-  xc_reduce_kernel<<<nblk, kReduceBlock, 0, stream>>>(
+  xc_reduce_kernel<false><<<nblk, kReduceBlock, 0, stream>>>(
       nao, nchunk, ldv, gpad / kPointBlock, v_part, e_part, v_out, e_out);
+  return (int)cudaGetLastError();
+}
+
+// K2: kinds 0 (LDA) and 3 (HF), no variant.  Shape contract (checked by
+// the Python wrapper): 1 <= nao <= npad <= 384, npad % 8 == 0, gpad % 1024
+// == 0, chunk a positive multiple of 32; dm (npad, npad) with rows and
+// columns beyond nao zero, aot (npad, gpad), wt/s (gpad), e_part (gpad /
+// 64), v_part (ceil(gpad / chunk), ldv, ldv) with ldv = 32 ceil(npad / 32),
+// v_out (nao, nao), e_out (1).  Returns the CUDA error code (0 on success).
+int fused_xc_lda(int kind, int nao, int npad, int gpad, int chunk,
+                 const float* dm, const float* aot, const float* wt, float* s,
+                 float* e_part, float* v_part, float* v_out, float* e_out,
+                 void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (nao < 1 || nao > npad || npad % 8 != 0 || npad > 384 ||
+      gpad % kPack != 0 || chunk <= 0 || chunk % kTk != 0 ||
+      (kind != 0 && kind != 3))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = kind == 0
+      ? launch_lda_rho<0>(npad, gpad, dm, aot, wt, s, e_part, stream)
+      : launch_lda_rho<3>(npad, gpad, dm, aot, wt, s, e_part, stream);
+  if (err != cudaSuccess) return (int)err;
+  const int T = (npad + kVTile - 1) / kVTile;
+  const int ntiles = T * (T + 1) / 2;
+  const int ldv = T * kVTile;
+  const int nchunk = (gpad + chunk - 1) / chunk;
+  const size_t smem = lda_v_smem(npad);
+  err = cudaFuncSetAttribute(xc_lda_v_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  xc_lda_v_kernel<<<dim3((ntiles + kVWarps - 1) / kVWarps, nchunk),
+                    32 * (ntiles < kVWarps ? ntiles : kVWarps), smem, stream>>>(
+      npad, gpad, chunk, ldv, aot, s, v_part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int nblk = (nao * nao + kReduceBlock - 1) / kReduceBlock + 1;
+  xc_reduce_kernel<true><<<nblk, kReduceBlock, 0, stream>>>(
+      nao, nchunk, ldv, gpad / kLdaCols, v_part, e_part, v_out, e_out);
   return (int)cudaGetLastError();
 }
 

@@ -18,6 +18,27 @@ them all):
   * ``reduce="split2"``: the Pallas default's 2-pass bf16 row sums of rho,
     grad rho and E; the default "f32" is ``_ENV_VPU_REDUCE``'s plain sum.
 
+K2 (the LDA body with no variant, replacing ``pallas_xc.py:269-291``) has
+a design of its own for Hopper (``csrc/fused_xc.cu``'s header note):
+
+  * ``xc_lda_rho_kernel`` (or, where D fits in shared memory, npad <= 176,
+    the persistent ``xc_lda_rho_res_kernel``): phi_D on the tensor cores
+    for a 64-point tile and every mu, rho from the accumulators, the
+    functional, s = w vrho and the tile's E partial; phi_D never leaves
+    registers;
+  * ``xc_lda_v_kernel``: V = AO diag(s) AO^T over the 32 x 32 tiles on or
+    above the diagonal, split-K over grid chunks (``lda_v_tiles`` and
+    ``lda_v_chunk`` give the schedule), s AO formed at fragment load, so no
+    B^T plane exists;
+  * the deterministic reduce, which mirrors the upper triangle.
+
+Both products are 3 x TF32 (hi = tf32(x), lo = x - hi; hi.lo + lo.hi +
+hi.hi with f32 sums): f32-class, as the TPU kernel's phi_D at HIGHEST,
+since a coarser phi_D costs SCF cycles (``pallas_xc.py:131-141``).  The old
+design (FP32 FMA tiles, phi_D and B^T planes in HBM, all of V) measured
+4.5-5.0 ms at DHA against 3.8-5.8 ms for the plain version; what bounds the
+new one is in the header note and ``PERF.md``.
+
 The SCF passes no variant.  This module builds the kernels at first use
 (nvcc, keyed by a hash of the sources), binds them with ctypes, and keeps
 beside them:
@@ -64,10 +85,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 MAX_NPAD = 384
 POINT_BLOCK = 128
 CHUNK = 1024      # gpad is a multiple of it (the V chunk is too)
-TILE = 64         # output tile edge of the kernels' two products
+TILE = 64         # output tile edge of K1's (and the variants') products
 # target (output tiles x grid chunks) blocks of the V partial kernel: the
 # chunk grows with npad so that the partial buffer stays ~V_BLOCKS * 16 KB
 V_BLOCKS = 2048
+# K2 (csrc/fused_xc.cu, xc_lda_*): points per rho block (its E partials),
+# the V output tile edge, V tiles per block (one a warp), the target block
+# count of the V kernel (two waves of the H100's 132 SMs) and the bound on
+# its chunk partials (floats, 32 MB)
+LDA_COLS = 64
+LDA_V_TILE = 32
+LDA_V_WARPS = 16
+LDA_V_BLOCKS = 264
+LDA_V_PART_FLOATS = 8 << 20
 
 ABLATIONS = ("nophi", "phi3", "noprod", "nofunc", "nov")
 REDUCTIONS = ("f32", "split2")
@@ -138,6 +168,8 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.fused_xc.argtypes = [i, i, i, i, i, i] + [p] * 12
         lib.fused_xc.restype = i
+        lib.fused_xc_lda.argtypes = [i] * 5 + [p] * 9
+        lib.fused_xc_lda.restype = i
         lib.xc_functional_eval.argtypes = [i, i] + [p] * 6
         lib.xc_functional_eval.restype = i
         _LIB = lib
@@ -327,6 +359,27 @@ def v_chunk(npad: int, gpad: int) -> int:
     return _round_up(-(-gpad // nchunk), CHUNK)
 
 
+def lda_v_tiles(npad: int) -> list[list[tuple[int, int]]]:
+    """K2's V schedule: the 32 x 32 output tiles (row, col) on or above
+    the diagonal, row by row, in blocks of LDA_V_WARPS (one tile a warp;
+    xc_lda_v_kernel's upper_tile enumerates the same order)."""
+    t = -(-npad // LDA_V_TILE)
+    tiles = [(r, c) for r in range(t) for c in range(r, t)]
+    return [tiles[i:i + LDA_V_WARPS]
+            for i in range(0, len(tiles), LDA_V_WARPS)]
+
+
+def lda_v_chunk(npad: int, gpad: int) -> int:
+    """Grid points per K2 V partial: a multiple of 32 (the kernel's
+    slab) with tile blocks x chunks near LDA_V_BLOCKS and the partials
+    (nchunk ldv^2 floats) within LDA_V_PART_FLOATS."""
+    ldv = -(-npad // LDA_V_TILE) * LDA_V_TILE
+    nslab = gpad // 32
+    nchunk = max(1, min(nslab, LDA_V_BLOCKS // len(lda_v_tiles(npad)),
+                        LDA_V_PART_FLOATS // (ldv * ldv)))
+    return 32 * -(-nslab // nchunk)
+
+
 def _check_inputs(functional, dm, aot, wt, grads, n):
     npad, gpad = aot.shape
     if npad > MAX_NPAD:
@@ -356,6 +409,8 @@ def _launch(functional: Functional, dm, aot, wt, grads, n: int,
     dev = aot.device
     f32 = torch.float32
     dm_p = _pad_dm(dm, npad)
+    if names == ["K2"]:
+        return _launch_lda(functional, dm, dm_p, aot, wt, n)
     chunk = v_chunk(npad, gpad)
     ldv = _round_up(npad, TILE)
     phi_bt = torch.empty((npad, gpad), dtype=f32, device=dev)
@@ -375,6 +430,27 @@ def _launch(functional: Functional, dm, aot, wt, grads, n: int,
     _check(code, "fused_xc launch")
     for name in names:
         LAUNCHES[name] += 1
+    return e_out[0].to(dm.dtype), v_out.to(dm.dtype)
+
+
+def _launch_lda(functional: Functional, dm, dm_p, aot, wt, n: int):
+    """K2: xc_lda_rho_kernel, xc_lda_v_kernel and the reduce."""
+    npad, gpad = aot.shape
+    dev, f32 = aot.device, torch.float32
+    chunk = lda_v_chunk(npad, gpad)
+    ldv = -(-npad // LDA_V_TILE) * LDA_V_TILE
+    s = torch.empty(gpad, dtype=f32, device=dev)
+    e_part = torch.empty(gpad // LDA_COLS, dtype=f32, device=dev)
+    v_part = torch.empty((-(-gpad // chunk), ldv, ldv), dtype=f32, device=dev)
+    v_out = torch.empty((n, n), dtype=f32, device=dev)
+    e_out = torch.empty(1, dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        code = _lib().fused_xc_lda(
+            functional.kind, n, npad, gpad, chunk, _ptr(dm_p), _ptr(aot),
+            _ptr(wt), _ptr(s), _ptr(e_part), _ptr(v_part), _ptr(v_out),
+            _ptr(e_out), _stream())
+    _check(code, "fused_xc_lda launch")
+    LAUNCHES["K2"] += 1
     return e_out[0].to(dm.dtype), v_out.to(dm.dtype)
 
 

@@ -1,8 +1,10 @@
 """The port's CUDA kernels on the card: K1/K2, K3 (phi_split) and the K1
 variants (ablations, split2 row sums) against their plain PyTorch
 versions, determinism and launch counting, in-core (H2O) and above npad 64
-(Decane npad 72, DHA npad 152).  Imports no JAX, so it also runs where JAX
-is absent:
+(Decane npad 72, DHA npad 152); K2 (the LDA body on TF32 tensor cores)
+also against the f64 engine (relative dE and max dV 5e-5, the Pallas
+contract) at every shape from H2O to npad 384.  Imports no JAX, so it also
+runs where JAX is absent:
 
     python -m pytest --noconftest -q tests/test_torch_gpu.py
 
@@ -26,6 +28,7 @@ from quantum_compute_dft_tpu_torch.basis import build_basis
 from quantum_compute_dft_tpu_torch.basis.basis_set import sad_occupations
 from quantum_compute_dft_tpu_torch.engine import fused_xc
 from quantum_compute_dft_tpu_torch.engine.ao_eval import eval_ao
+from quantum_compute_dft_tpu_torch.engine.xc_engine import xc_step
 from quantum_compute_dft_tpu_torch.grids import build_grid
 from quantum_compute_dft_tpu_torch.mol import from_xyz_file
 from quantum_compute_dft_tpu_torch.scf.driver import initial_guess
@@ -150,3 +153,52 @@ def test_cuda_variant_matches_plain_version(molecule, name, variant):
     aot, wt, grads = fused_xc.pack_inputs(s.ao, s.weights, s.ao_grad,
                                           needs_grad=fn.needs_grad)
     _check_kernel(fn, dm, aot, wt, grads, n, **variant)
+
+
+def _k2_planes(shape, dev):
+    """(dm, ao, w) f64 on the card for one K2 shape: H2O grid 1 at a
+    perturbed guess, else a perturbed SAD density on grid-1 points (Decane's
+    first 65 AOs on every 4th point: npad 72, ragged; Decane and DHA on every
+    4th point: npad 72, 152; the first 65,536 points of C33H56N7O17P3S:
+    npad 384)."""
+    if shape == "H2O":
+        setup = kohn_sham.prepare(
+            from_xyz_file(os.path.join(ROOT, "molecules", "H2O.xyz")), "LDA",
+            grid_level=1, device=dev)
+        n = setup.nao
+        pert = np.random.default_rng(13).standard_normal((n, n)) * 1e-2
+        dm = initial_guess(setup.sys) + torch.tensor(pert + pert.T, device=dev)
+        return dm, setup.sys.ao, setup.sys.weights
+    molecule = {"Decane65": "Decane", "npad384": "C33H56N7O17P3S"}.get(
+        shape, shape)
+    mol = from_xyz_file(os.path.join(ROOT, "molecules", molecule + ".xyz"))
+    basis = build_basis(mol)
+    grid = build_grid(mol, level=1, device=dev)
+    pts = slice(0, 65536) if shape == "npad384" else slice(None, None, 4)
+    ao = eval_ao(basis, grid.coords[pts], deriv=0, device=dev)
+    w = torch.tensor(grid.weights[pts], device=dev)
+    n = basis.nao
+    pert = np.random.default_rng(19).standard_normal((n, n)) * 1e-2
+    dm = torch.tensor(np.diag(sad_occupations(basis, mol.charges, mol.nelec))
+                      + pert + pert.T, device=dev)
+    if shape == "Decane65":
+        dm, ao = dm[:65, :65], ao[:, :65].contiguous()
+    return dm, ao, w
+
+
+@pytest.mark.parametrize("shape,npad", [("H2O", 8), ("Decane65", 72),
+                                        ("Decane", 72), ("DHA", 152),
+                                        ("npad384", 384)])
+@pytest.mark.parametrize("name", ["LDA", "HF"])
+def test_cuda_k2_matches_plain_and_f64(shape, npad, name):
+    dev = _cuda()
+    fn = FUNCTIONALS[name]
+    dm, ao, w = _k2_planes(shape, dev)
+    n = dm.shape[0]
+    aot, wt, _ = fused_xc.pack_inputs(ao, w)
+    assert aot.shape[0] == npad
+    _check_kernel(fn, dm, aot, wt, None, n)
+    e_k, v_k = fused_xc.fused_xc(fn, dm, aot, wt, None, n)
+    e_64, v_64 = xc_step(fn, dm, ao, w, None)
+    assert abs(float(e_k) - float(e_64)) <= 5e-5 * max(abs(float(e_64)), 1.0)
+    assert float(torch.abs(v_k - v_64).max()) < 5e-5
