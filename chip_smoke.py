@@ -15,17 +15,20 @@ raises and the script exits non-zero without the final line):
      grid-1 points of C33H56N7O17P3S (npad 384), K1 (B3LYP) and K2 (LDA);
      bitwise equal results from two calls (deterministic reductions),
      finiteness of the device functional over extreme (rho, sigma), kernel
-     and plain times at the benzene and DHA shapes, and K2's also at Decane
-     and npad 384 (median of 25 calls, CUDA events); K2's two kernels and
-     its reduce timed apart at DHA from one torch.profiler trace
+     and plain times of K1 and K2 at benzene, Decane, DHA and npad 384
+     (median of 25 calls, CUDA events) beside each one's bound; the rho, V
+     and reduce kernels of K1 and of K2 timed apart at DHA from one
+     torch.profiler trace each; the two products alone as full-f32
+     torch.matmul at DHA, for context
      c. K3 (phi_D on bf16 tensor cores), GGA and LDA bodies, at every
         shape of 3a/3b: against the plain K3 (relative dE 1e-5, max dV
         5e-5) and the f64 engine (3e-4 and 3e-3, the JAX package's K3
         contract), bitwise equal over two calls; times at benzene and DHA
-     d. each K1 ablation (nophi, phi3, noprod, nofunc, nov) and the split2
-        row sums at benzene (PBE) and DHA (B3LYP), split2 also in the LDA
-        body, against their own plain versions (relative dE 1e-5; max dV
-        1e-5 for split2, of max(1, max |V|) 5e-5 for the ablations, whose
+     d. K1base (K1 on the four-kernel pipeline, the ablations' base), each
+        K1 ablation (nophi, phi3, noprod, nofunc, nov) and the split2 row
+        sums at benzene (PBE) and DHA (B3LYP), split2 also in the LDA body,
+        against their own plain versions (relative dE 1e-5; max dV 1e-5 for
+        K1base and split2, of max(1, max |V|) 5e-5 for the ablations, whose
         V reaches 1e10 (nofunc), and 2e-3 for noprod, see TOL_NOPROD_V);
         nov's V exactly zero; times
   4. the main paths, each with the kernels' launch counts set to 0 just
@@ -41,8 +44,12 @@ raises and the script exits non-zero without the final line):
      variant, one launch of each variant's kernel per kernel call it made,
      each E within 1e-5 of its plain version
 
-The last two lines are the kernels' JSON record and
-{"ok": true, "device": {...}}.  Imports nothing of JAX; needs a CUDA GPU.
+The last three lines are the kernels' JSON record (every kernel with its
+launches on its path, its largest deviation from its plain version, its
+time, the plain version's, its bound and what sets it, and library_ms:
+null, since no one PyTorch call computes a fused XC body), the card's name
+and power limit, and {"ok": true, "device": {...}}.  Imports nothing of
+JAX; needs a CUDA GPU.
 """
 
 from __future__ import annotations
@@ -81,18 +88,26 @@ DECANE_E = -389.66540042
 DHA_E = -995.41205421
 DF_TOL = 1e-6
 FAST_VS_F64_TOL = 1e-7       # tests/test_torch_scf.py
+# the card's peaks for the bounds (H100 SXM data sheet, 700 W): HBM bytes/s
+# and the TF32 tensor-core rate, at which the product FLOPs are counted;
+# the FP32 pipe's rate, printed beside it
+HBM_BYTES_S = 3.35e12
+TF32_FLOP_S = 495e12
+FP32_FLOP_S = 67e12
 # phase 3's density-fitting shapes: (molecule, grid level, first points)
 DF_SHAPES = (("Decane", 3, None), ("DHA", 3, None),
              ("C33H56N7O17P3S", 1, 65536))
 KERNEL_SRC = "quantum_compute_dft_tpu_torch/csrc/fused_xc.cu"
 _PX = "quantum_compute_dft_tpu/engine/pallas_xc.py:"
 REPLACES = {
-    "K1": _PX + "201", "K2": _PX + "269", "K3": _PX + "157",
+    "K1": _PX + "201", "K2": _PX + "269", "K1base": _PX + "201",
+    "K3": _PX + "157",
     "nophi": _PX + "219", "phi3": _PX + "221", "noprod": _PX + "227",
     "nofunc": _PX + "243", "nov": _PX + "262", "split2": _PX + "187",
 }
 KERNEL_NAMES = {
     "K1": "K1 fused_xc GGA body", "K2": "K2 fused_xc LDA body",
+    "K1base": "K1base fused_xc GGA body on the four-kernel pipeline",
     "K3": "K3 fused_xc phi_D on bf16 tensor cores (both bodies)",
     "nophi": "K1 ablation nophi", "phi3": "K1 ablation phi3",
     "noprod": "K1 ablation noprod", "nofunc": "K1 ablation nofunc",
@@ -204,6 +219,31 @@ def _compare(label, kid, case, rec, variant=None, tol_plain=(TOL_PLAIN,
     return v_k
 
 
+def _bound(kid, case):
+    """(ms, "bytes" | "operations"): the least time the card could take for
+    one call on this case's data, counted on the nao AOs and the grid's
+    points (the wrapper's padding to npad rows and gpad points is not
+    work the function needs).  Bytes: each input read once (the f64 D, the
+    f32 AO plane and for the GGA body its three gradient planes, the f32
+    weights) and each output written once (the f64 V and E), at
+    HBM_BYTES_S.  Operations: the products the variant computes, at the
+    TF32 rate: phi_D = D AO, 2 nao^2 points FLOPs; V, symmetric, a syr2k
+    (AO B^T + B AO^T) of 2 nao^2 points FLOPs for the GGA body and a syrk
+    (AO diag(s) AO^T) of nao (nao + 1) points for the LDA body; nophi drops
+    phi_D, nov drops V.  -> (ms, what sets it, the same FLOPs' ms on the
+    FP32 pipe)."""
+    fn, n, npts = case[1], case[6], case[7].shape[0]
+    planes = 4 if fn.needs_grad else 1
+    nbytes = 8 * (2 * n * n + 1) + 4 * (planes * n + 1) * npts
+    flops = 0.0 if kid == "nophi" else 2.0 * n * n * npts
+    if kid != "nov":
+        flops += (2.0 * n * n if fn.needs_grad else n * (n + 1.0)) * npts
+    t_b = nbytes / HBM_BYTES_S
+    t_o = flops / TF32_FLOP_S
+    return (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations",
+            1e3 * t_b, 1e3 * t_o, 1e3 * flops / FP32_FLOP_S)
+
+
 def _time(kid, label, case, rec, key, variant=None):
     from quantum_compute_dft_tpu_torch.engine import fused_xc
 
@@ -211,19 +251,23 @@ def _time(kid, label, case, rec, key, variant=None):
     args = case[1:7]
     ms = _cuda_ms(lambda: fused_xc.fused_xc(*args, **variant))
     plain = _cuda_ms(lambda: fused_xc.fused_xc_reference(*args, **variant))
-    rec[kid][key + "ms"], rec[kid][key + "plain_ms"] = ms, plain
+    bound, by, t_b, t_o, t_fp32 = _bound(kid, case)
+    rec[kid].update({key + "ms": ms, key + "plain_ms": plain,
+                     key + "bound_ms": bound, key + "bound_by": by})
     print(f"  {kid} {label} time: kernel {ms:.4f} ms, plain {plain:.4f} ms "
-          "(median of 25)", flush=True)
+          f"(median of 25), bound {bound:.4f} ms ({by}; bytes {t_b:.4f}, "
+          f"TF32 ops {t_o:.4f}, FP32 ops {t_fp32:.4f})", flush=True)
 
 
-# K2's further timed shapes (phase 3b) -> their record key prefix
-K2_TIMED = {"Decane grid 3": "decane_",
+# phase 3b's timed shapes of K1 and K2 -> their record key prefix
+DF_TIMED = {"Decane grid 3": "decane_", "DHA grid 3": "dha_",
             "C33H56N7O17P3S grid 1 first 65536 points": "npad384_"}
 
 
-def _profile_k2(case, rec, calls=10):
-    """K2's kernels timed apart from one torch.profiler trace of `calls`
-    calls: device ms per call of each kernel, printed and recorded."""
+def _profile(kid, case, rec, calls=10):
+    """K1's or K2's kernels timed apart from one torch.profiler trace of
+    `calls` calls: device ms per call of each kernel, printed and
+    recorded."""
     import re
 
     import torch
@@ -242,18 +286,32 @@ def _profile_k2(case, rec, calls=10):
         torch.cuda.synchronize()
     split = {}
     for ev in prof.key_averages():
-        m = re.search(r"(xc_lda_\w+|xc_reduce_kernel)", ev.key)
+        m = re.search(r"(xc_rho\w*|xc_\w+_v_kernel|xc_reduce_kernel)", ev.key)
         dev_us = getattr(ev, "device_time_total", 0) or getattr(
             ev, "cuda_time_total", 0)
         if m and dev_us:
             split[m.group(1)] = dev_us / 1e3 / calls
     if not split:
-        raise AssertionError("K2 profile: the trace shows no device time")
-    rec["K2"]["dha_split_ms"] = split
-    print(f"  K2 {case[0]} kernel split (torch.profiler, device ms per call, "
+        raise AssertionError(f"{kid} profile: the trace shows no device time")
+    rec[kid]["dha_split_ms"] = split
+    print(f"  {kid} {case[0]} kernel split (torch.profiler, device ms per call, "
           f"{calls} calls): " + ", ".join(f"{k} {v:.4f}"
                                           for k, v in split.items()),
           flush=True)
+
+
+def _products_matmul(case, rec):
+    """For context: K1's two products alone as full-f32 torch.matmul
+    (phi_D = D AO, and V's AO B^T at its shapes) on this case's planes."""
+    from quantum_compute_dft_tpu_torch.engine import fused_xc
+
+    dm, aot = case[2], case[3]
+    dm_p = fused_xc._pad_dm(dm, aot.shape[0])
+    with fused_xc._full_f32_matmul():
+        ms = _cuda_ms(lambda: (dm_p @ aot, aot @ aot.T))
+    rec["K1"]["dha_products_matmul_ms"] = ms
+    print(f"  K1 {case[0]}: the two products alone as full-f32 torch.matmul "
+          f"{ms:.4f} ms (median of 25)", flush=True)
 
 
 def _df_shapes(dev):
@@ -335,12 +393,12 @@ def phase_kernels(dev):
                                                   needs_grad=fn.needs_grad)
             case = (f"{label}/{fname}", fn, dm, aot, wt, grads, n, ao, w, g)
             _compare(case[0], kid, case, rec)
+            if label in DF_TIMED:
+                _time(kid, f"{label} {fname}", case, rec, DF_TIMED[label])
             if label.startswith("DHA"):
-                _time(kid, f"DHA {fname}", case, rec, "dha_")
-                if kid == "K2":
-                    _profile_k2(case, rec)
-            elif kid == "K2" and label in K2_TIMED:
-                _time(kid, label, case, rec, K2_TIMED[label])
+                _profile(kid, case, rec)
+                if kid == "K1":
+                    _products_matmul(case, rec)
             cases.append(case)
     _phase("3b kernels, density-fitting shapes", t1, "K1/K2 match the plain "
            "version and the f64 engine at npad 72, 152 and 384")
@@ -382,9 +440,9 @@ def phase_k3(cases, rec):
 
 
 def phase_variants(cases, rec):
-    """The ablations (GGA body) and split2 (both bodies) at benzene and DHA
-    against their plain versions; nov's V exactly zero; times in the GGA
-    body."""
+    """K1base and the ablations (GGA body) and split2 (both bodies) at
+    benzene and DHA against their plain versions; nov's V exactly zero;
+    times in the GGA body."""
     from quantum_compute_dft_tpu_torch.engine.fused_xc import (
         ABLATIONS,
         VARIANTS,
@@ -395,7 +453,8 @@ def phase_variants(cases, rec):
         label, fn = case[0], case[1]
         if label not in TIMED:
             continue
-        for kid in ("split2", *ABLATIONS) if fn.needs_grad else ("split2",):
+        for kid in (("K1base", "split2", *ABLATIONS) if fn.needs_grad
+                    else ("split2",)):
             variant = VARIANTS[kid]
             tol_v = (TOL_NOPROD_V if kid == "noprod" else TOL_ABLATE_V
                      if kid in ABLATIONS else TOL_PLAIN)
@@ -405,8 +464,8 @@ def phase_variants(cases, rec):
                 raise AssertionError(f"nov {label}: V is not zero")
             if fn.needs_grad:
                 _time(kid, label, case, rec, TIMED[label], variant)
-    _phase("3d K1 variants", t0, "ablations and split2 match their plain "
-           "versions at benzene and DHA; nov's V is zero")
+    _phase("3d K1 variants", t0, "K1base, the ablations and split2 match "
+           "their plain versions at benzene and DHA; nov's V is zero")
 
 
 def _golden(molecule, functional):
@@ -544,6 +603,10 @@ def main() -> int:
         if entry["launches"] < 1:
             raise AssertionError(f"{kid} was not launched on its path")
         entry.update(rec[kid])
+        entry["library_ms"] = None  # no one PyTorch call is a fused XC body
+        missing = {"ms", "plain_ms", "bound_ms", "bound_by"} - set(entry)
+        if missing:
+            raise AssertionError(f"{kid}: no {sorted(missing)} in this run")
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,7 +1,8 @@
 // Fused f32 XC build (E_xc, V_xc) for Hopper (sm_90a): kernels K1 (GGA body:
 // PBE, B3LYP) and K2 (LDA body: LDA, and HF through the zero functional), K3
 // (either body with phi_D on bf16 tensor cores, the TPU kernel's phi_split)
-// and K1's ablation and reduction variants.
+// and the ablation and reduction variants, which run on the four-kernel
+// pipeline that was K1's design until it was redesigned (K1base below).
 //
 // Replaces quantum_compute_dft_tpu/engine/pallas_xc.py::_make_kernel (entered
 // through xc_step_pallas_packed / xc_step_pallas).  Same arithmetic, not the
@@ -15,8 +16,9 @@
 //   B^T = w vrho AO + 2 w vsigma sum_k grad_k rho dAO_k
 //   V   = AO B ;  V_out = (V + V^T) / 2
 //
-// K1, K3 and the variants (the GGA body, and any variant of either body).
-// What bounds them on this card: two products of 2 npad^2 FLOPs per point
+// The four-kernel pipeline: K1base (the GGA body as K1 ran it before its
+// redesign, kept as the base the ablations are timed against), K3 and the
+// variants.  What bounds them on this card: two products of 2 npad^2 FLOPs per point
 // (phi_D and V) in plain FP32 FMA (K3: phi_D on bf16 tensor cores): at DHA
 // (npad 152, ~635k points) ~29 GFLOP each against 67 TFLOP/s of FP32 FMA;
 // the planes are ~0.4 GB (AO + 3 gradients) plus phi_D / B^T written and
@@ -42,56 +44,78 @@
 //   and phi_D = D_h AO_h + D_h AO_l + D_l AO_h runs on the tensor cores
 //   (mma.sync m16n8k16, f32 accumulation); see its note.
 //
-// K2 (the LDA body, pallas_xc.py:269-291: LDA, and HF through the zero
-// functional; no variant).  There B^T = (w vrho) AO (:290), so V = AO
-// diag(s) AO^T with s = w vrho, and V is symmetric.  K2 ran the four
-// kernels above until it measured 4.5-5.0 ms at DHA against 3.8-5.8 ms for
-// its plain version (cuBLAS SGEMM), bound by FP32 FMA products at ~22
-// TFLOP/s (8 shared loads per 16 FMAs), padding to 64-row tiles (ldv 192
-// at npad 152: 26% more phi_D work, 60% more V), all of V computed though
-// it is symmetric, and ~5 GB of HBM traffic (AO re-read per row tile,
-// phi_D written and re-read, B^T written and re-read per V tile).  Now it is
+// K1 and K2 (the GGA body, pallas_xc.py:201-265, and the LDA body, :269-291;
+// no variant) have a design of their own for this card.  Both ran the four
+// kernels above until they measured, at DHA, 5.4-5.8 ms (K1) and 4.5-5.0 ms
+// (K2), bound by FP32 FMA products at ~22 TFLOP/s (8 shared loads per 16
+// FMAs), padding to 64-row tiles (ldv 192 at npad 152: 26% more phi_D work,
+// 60% more V) and ~5 GB of HBM traffic (AO re-read per row tile, phi_D
+// written and re-read, B^T written and re-read per V tile).  Now each body is
 // two kernels and the reduce, on the tensor cores, with no phi_D or B^T
-// plane in HBM:
-//   1. xc_lda_rho_kernel / xc_lda_rho_res_kernel: per 64-point column tile,
+// plane in HBM (after xc_pad_dm_kernel, the f32 padded copy of the caller's
+// f64 density):
+//   1. xc_rho_kernel / xc_rho_res_kernel<KIND>: per 64-point column tile,
 //      phi_D^T = AO^T D^T (m = points, n = mu in 8-wide tiles, so no row
 //      padding; k = nu) with all npad mu in one block's registers, rho from
-//      the accumulators against the staged AO tile (shuffles, then shared
-//      memory, fixed order), the functional (xc_functional.cuh), s_g = w
-//      vrho and the tile's E partial.  AO is read from HBM once.  Where D
-//      fits in shared memory (npad <= 176) it stays resident in a
-//      persistent block of two independent 8-warp groups; above, D streams
-//      in 32-deep slabs through a cp.async ring.
-//   2. xc_lda_v_kernel: V = AO diag(s) AO^T over the 32 x 32 output tiles on
-//      or above the diagonal (16 x 8 sub-tiles wholly below it or beyond
-//      npad skipped: npad 152 computes 12,800 entries, not 192^2), one tile
-//      a warp and up to 16 a block, split-K over grid chunks (one tile block
-//      per chunk up to npad 160; AO read once there, once per tile block
-//      above).  Both operands are AO rows with the grid axis as k, as the
-//      plane is stored, so one staged slab feeds both; s_g AO is formed at
-//      fragment load.
-//   3. xc_reduce_kernel<true>: sums the chunk partials in chunk order and
-//      mirrors the upper triangle; E partials in a fixed order.
+//      the accumulators against the staged AO tile and (K1) grad rho_k =
+//      2 sum phi_D dAO_k from the accumulators against the gradient planes,
+//      read once straight from HBM at the fragment positions (three gradient
+//      tiles do not fit in shared memory beside D and two AO tiles at npad
+//      152).
+//      Then, per point (shuffles, then shared memory, fixed order), the
+//      functional (xc_functional.cuh), s_g = w vrho, (K1) u_k,g = 2 w vsigma
+//      grad_k rho, and the tile's E partial: 1 (K2) or 4 (K1) floats a
+//      point where the old design wrote a phi_D plane.  AO and the gradient
+//      planes are read from HBM once.  Where D fits in shared memory (npad
+//      <= 176 for K2, <= 168 for K1, whose reduction scratch is larger) it
+//      stays resident in a persistent block of two independent 8-warp
+//      groups; above, D streams in 32-deep slabs through a cp.async ring.
+//   2. V over the 32 x 32 output tiles on or above the diagonal (16 x 8
+//      sub-tiles wholly below it or beyond npad skipped: npad 152 computes
+//      12,800 entries, not 192^2), one tile a warp, split-K over grid chunks.
+//      Both operands are rows of (npad, points) planes with the grid axis as
+//      k, as the planes are stored.
+//      K2, xc_lda_v_kernel: V = AO diag(s) AO^T, symmetric; one staged AO
+//      slab feeds both operands, s_g AO formed at fragment load; up to 16
+//      tiles a block (one tile block per chunk up to npad 160).
+//      K1, xc_gga_v_kernel: V + V^T = A B^T + B A^T (A = AO, B = s AO +
+//      sum_k u_k dAO_k; a syr2k over the upper tiles).  The AO and gradient
+//      planes stream in 16-point slabs (four planes of 32-deep slabs would
+//      not fit a ring) and one pass per slab forms B's slab in shared
+//      memory, each element once, a slab ahead of the products that read
+//      it: no B^T plane exists.  Up to npad 160 one block holds all 15
+//      tiles; above, tile rows form groups of 3 (96 rows) and a block takes
+//      the tiles of one pair of groups, staging only those rows (<= 192).
+//      When every warp issued its share of the copies between its products,
+//      staging four planes did not overlap with the products and took a
+//      large share of the kernel's time, so one warpgroup only copies,
+//      ahead of the others, through mbarriers.
+//   3. xc_reduce_kernel<true, double>: sums the chunk partials in chunk
+//      order and mirrors the upper triangle (K1: times 1/2, exact); E
+//      partials in a fixed order; writes E and V in the caller's f64.
 // Both products run as 3 x TF32 on mma.sync m16n8k8 (hi = tf32(x), lo =
 // x - hi; hi.lo + lo.hi + hi.hi, f32 accumulation, per-stage partial sums):
 // f32-class (~2^-22), as the TPU kernel's phi_D at HIGHEST, because a
 // coarser phi_D feeds the density and was measured to cost SCF cycles
 // (pallas_xc.py:131-141: benzene 25 -> 31 with the 3-pass bf16 phi_D).  V
 // takes the same path (the TPU's own V was the 3-pass bf16 split).  At DHA
-// (npad 152, gpad 633,856): MMA work 87.9 GFLOP (phi_D) + 48.7 GFLOP (V),
-// HBM ~0.82 GB (AO read twice, 771 MB; s, w; 13 MB of V partials written,
-// 24 MB read by the reduce).  What bounds it (H100, 700 W, chip_smoke.py's
-// profiler split): rho 0.73 ms, V 0.47 ms, reduce 0.04 ms of ~1.35; the
-// products run at ~120 (rho) and ~105 (V) TFLOP/s of the ~320 that
-// mma.sync TF32 reaches on this card with no operand traffic.  Measured by
-// ablation: the fragment loads and splits (shared loads, integer rounding)
-// and the issue of three mma per product take the rest; the functional is
-// ~0.04 ms.  wgmma, which reads both operands from shared memory, is the
-// next step for V (both operands are K-major, as tf32 wgmma needs).
+// (npad 152, gpad 633,856) the two products are 29.3 GFLOP each (MMA work
+// three times that), and K1's inputs 1.54 GB (AO and three gradient planes,
+// each read twice by this design); K2's 0.39 GB.  What bounds them (H100,
+// 700 W, chip_smoke.py's profiler split, K2: rho 0.72 ms, V 0.46, reduce
+// 0.04): the products run at ~120 (rho) and ~105 (V) TFLOP/s of the ~320
+// that mma.sync TF32 reaches on this card with no operand traffic; the
+// fragment loads and splits (shared loads, integer rounding) and the issue
+// of three mma per product take the rest.  K1 (the same split): rho 1.07 ms,
+// V 1.16, reduce 0.02; its rho kernel also waits on the gradient planes in
+// the fold, and its V kernel moves four planes.  wgmma,
+// which reads both operands from shared memory, is the next step for V
+// (both operands are K-major, as tf32 wgmma needs).
 //
 // No float atomics anywhere: every sum runs in the same order on every call,
-// so SCF trajectories are reproducible run to run.  The wrappers pick the
-// chunks so that tiles x chunks stays near a fixed block count, which
+// so SCF trajectories are reproducible run to run.  The chunks (the wrapper's
+// for K1base, the variants and K2; fused_xc_tc_v_chunk's for K1) keep tiles
+// x chunks near a fixed block count, which
 // bounds the partial buffers (~32 MB) whatever npad and the grid size are.
 // The TPU kernel's bf16 splits (but K3's), ones-row matmul reductions,
 // (8, tile/8) subtiling and npad-dependent grid tile are MXU / VMEM devices
@@ -306,8 +330,8 @@ xc_phi_split_kernel(int npad, int gpad, const float* __restrict__ dm,
   }
 }
 
-// ---- K2: the LDA body on TF32 tensor cores (xc_lda_rho_kernel,
-// xc_lda_v_kernel; the design is in the header note) ----
+// ---- K1 and K2 on TF32 tensor cores (xc_rho_kernel, xc_rho_res_kernel,
+// xc_lda_v_kernel, xc_gga_v_kernel; the design is in the header note) ----
 
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -320,6 +344,44 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// mbarriers in shared memory: a phase completes when its count of arrivals
+// is in; waiters spin on the phase's parity.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count));
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  uint64_t state;
+  asm volatile("mbarrier.arrive.shared::cta.b64 %0, [%1];\n"
+               : "=l"(state)
+               : "r"(smem_u32(bar))
+               : "memory");
+  (void)state;
+}
+// arrives on bar once this thread's cp.async copies issued so far land
+// (noinc: the arrival is one of the count given at init)
+__device__ __forceinline__ void mbar_cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
 }
 
 // hi = tf32(x) rounded to nearest, ties away (cvt.rna's rounding, done on
@@ -352,44 +414,94 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 }
 
 
-constexpr int kLdaCols = 64;                 // grid points of a rho column tile
-constexpr int kLdaColStride = kLdaCols + 8;  // AO tile row stride (floats)
-constexpr int kLdaNb = 5;                    // n8 (mu) tiles per warp per pass
-constexpr int kLdaPass = 4 * kLdaNb;         // n8 tiles per pass (four warp columns)
+constexpr int kRhoCols = 64;                 // grid points of a rho column tile
+constexpr int kRhoColStride = kRhoCols + 8;  // AO tile row stride (floats)
+constexpr int kRhoNb = 5;                    // n8 (mu) tiles per warp per pass
+constexpr int kRhoPass = 4 * kRhoNb;         // n8 tiles per pass (four warp columns)
 constexpr int kSlabStride = kTk + 4;         // row stride of 32-deep k slabs
 constexpr int kVTile = 32;                   // V output tile edge (one warp)
-constexpr int kVWarps = 16;                  // V tiles per block
+constexpr int kVWarps = 16;                  // K2: V tiles per block
 constexpr int kRhoStages = 3;                // cp.async ring depth, rho kernel
-constexpr int kVStages = 4;                  // and V kernel
+constexpr int kVStages = 4;                  // and K2's V kernel
 constexpr int kResThreads = 512;             // resident-D rho kernel: 2 groups of 8 warps
-// dynamic shared memory a block may take beside the rho kernels' 2 KB of
-// static scratch (227 KB a block on the H100)
-constexpr size_t kMaxDynSmem = 232448 - 2048;
+// K1's V kernel: 16-point slabs at row stride 20 (a warp's fragment loads
+// hit banks 20 g + t, all distinct) through a ring of 4 stages at npad
+// 112-160 (gga_v_stages), else 3; all tile rows in one group up to T = 5
+// tiles (npad 160), else groups of 3 tile rows
+constexpr int kGSlab = 16;
+constexpr int kGSlabStride = kGSlab + 4;
+constexpr int kGMaxT = 5;
+constexpr int kGGroupTiles = 3;
+// its warps: one warpgroup of producers, and up to four of consumers (one
+// tile a warp: 15 tiles a block at most), with the registers setmaxnreg
+// gives each (a block's own allocation, 96 a thread at 640 threads, holds
+// both)
+constexpr int kGProducers = 4;
+constexpr int kGVThreads = 32 * (16 + kGProducers);
+constexpr int kGConsRegs = 112, kGProdRegs = 24;
+// shared memory a block may take (227 KB on the H100)
+constexpr size_t kBlockSmem = 232448;
+// bound on K1's V chunk partials (floats, 32 MB; the wrapper's
+// LDA_V_PART_FLOATS for K2)
+constexpr size_t kVPartFloats = 8 << 20;
+
+// quantities the rho pass sums per point: rho, and for the GGA kinds the
+// three components of grad rho
+__host__ __device__ constexpr int rho_nq(int kind) {
+  return (kind == 1 || kind == 2) ? 4 : 1;
+}
+
+// the rho kernels' static scratch (red_s), per group
+__host__ __device__ constexpr size_t rho_red_smem(int nq) {
+  return sizeof(float) * nq * 4 * kRhoCols;
+}
 
 // n8 tiles of one rho pass: passes split the npad / 8 tiles evenly
-__host__ __device__ inline int lda_pass_tiles(int npad) {
+__host__ __device__ inline int rho_pass_tiles(int npad) {
   const int ntn = npad / 8;
-  const int npass = (ntn + kLdaPass - 1) / kLdaPass;
+  const int npass = (ntn + kRhoPass - 1) / kRhoPass;
   return (ntn + npass - 1) / npass;
 }
 
 // streaming rho kernel: the AO tile and a ring of D slabs
-__host__ __device__ inline size_t lda_rho_smem(int npad) {
-  return sizeof(float) * ((size_t)npad * kLdaColStride +
-                          kRhoStages * (size_t)lda_pass_tiles(npad) * 8 * kSlabStride);
+__host__ __device__ inline size_t rho_smem(int npad) {
+  return sizeof(float) * ((size_t)npad * kRhoColStride +
+                          kRhoStages * (size_t)rho_pass_tiles(npad) * 8 * kSlabStride);
 }
 
 // resident-D rho kernel: D at row stride npad + 4 (= 4 mod 8: a warp's B
-// fragment loads hit 32 distinct banks) and one AO tile per group; fits
-// up to npad 176
-__host__ __device__ inline size_t lda_rho_res_smem(int npad) {
+// fragment loads hit 32 distinct banks) and one AO tile per group
+__host__ __device__ inline size_t rho_res_smem(int npad) {
   return sizeof(float) * ((size_t)npad * (npad + 4) +
-                          2 * (size_t)npad * kLdaColStride);
+                          2 * (size_t)npad * kRhoColStride);
 }
 
 __host__ __device__ inline size_t lda_v_smem(int npad) {
   const int rows = (npad + 15) / 16 * 16;
   return sizeof(float) * (kVStages * ((size_t)rows * kSlabStride + kTk));
+}
+
+// K1's V schedule: tile rows per group, and the rows a block stages at most
+__host__ __device__ inline int gga_group_tiles(int T) {
+  return T <= kGMaxT ? T : kGGroupTiles;
+}
+__host__ __device__ inline int gga_v_rows(int npad) {
+  const int T = (npad + kVTile - 1) / kVTile;
+  return T <= kGMaxT ? (npad + 15) / 16 * 16 : 2 * kGGroupTiles * kVTile;
+}
+// a ring stage: four planes' slabs, then s and u_0..2; then two B slabs
+__host__ __device__ inline size_t gga_v_stage(int npad) {
+  return 4 * (size_t)gga_v_rows(npad) * kGSlabStride + 4 * kGSlab;
+}
+__host__ __device__ inline size_t gga_v_smem(int npad, int stages) {
+  return sizeof(float) * (stages * gga_v_stage(npad) +
+                          2 * (size_t)gga_v_rows(npad) * kGSlabStride);
+}
+// 4 stages where they fit and 3 would not leave room for a second block
+// on the SM anyway (npad 112-160), else 3
+__host__ __device__ inline int gga_v_stages(int npad) {
+  return gga_v_smem(npad, 3) > kBlockSmem / 2 &&
+         gga_v_smem(npad, 4) <= kBlockSmem ? 4 : 3;
 }
 
 // barrier over one group of 256 threads (id 0 with 256 threads is the
@@ -403,8 +515,18 @@ __device__ __forceinline__ void bar_sync(int id) {
 // warp's A fragment loads hit banks 8t + g, all distinct).  The mma runs
 // with m = points, n = mu (n8 tiles: npad % 8 == 0, no padding) and k = nu,
 // B = D[mu][nu].  Warp (wm, wn) = (warp % 2, warp / 2) owns m16 tiles 2 wm
-// and 2 wm + 1 (points p0 = 32 wm + g ..) and a quarter of each pass's n8
-// tiles; a pass covers <= 20 n8 tiles (160 mu).  phi_D stays in registers.
+// and 2 wm + 1 and a quarter of each pass's n8 tiles; a pass covers <= 20
+// n8 tiles (160 mu); their rows are points p0 + 16 i (+ 8), p0 = 32 wm + g.
+// phi_D stays in registers.
+
+// the GGA body's gradient planes (npad, gpad); null for LDA and HF
+struct GradPlanes {
+  const float* g[3];
+  // plane k with k not a compile-time constant (no local-memory copy)
+  __device__ __forceinline__ const float* at(int k) const {
+    return k == 0 ? g[0] : k == 1 ? g[1] : g[2];
+  }
+};
 
 // the n8 tiles [first, first + mine) of warp column wn in a pass of cnt
 __device__ __forceinline__ void pass_share(int cnt, int wn, int& first,
@@ -419,21 +541,21 @@ __device__ __forceinline__ void pass_share(int cnt, int wn, int& first,
 // stage's products are summed apart and then added (stage_fma's reason).
 __device__ __forceinline__ void rho_stage(const float* pa, const float* pb,
                                           int bs, int kw, int mine,
-                                          float (&acc)[2][kLdaNb][4]) {
-  float s[2][kLdaNb][4] = {};
+                                          float (&acc)[2][kRhoNb][4]) {
+  float s[2][kRhoNb][4] = {};
   for (int kk = 0; kk < kw; kk += 8) {
     uint32_t ah[2][4], al[2][4];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const float* a = pa + kk * kLdaColStride + 16 * i;
+      const float* a = pa + kk * kRhoColStride + 16 * i;
       split_tf32(a[0], ah[i][0], al[i][0]);
       split_tf32(a[8], ah[i][1], al[i][1]);
-      split_tf32(a[4 * kLdaColStride], ah[i][2], al[i][2]);
-      split_tf32(a[4 * kLdaColStride + 8], ah[i][3], al[i][3]);
+      split_tf32(a[4 * kRhoColStride], ah[i][2], al[i][2]);
+      split_tf32(a[4 * kRhoColStride + 8], ah[i][3], al[i][3]);
     }
-    uint32_t bh[kLdaNb][2];  // lo parts are used at once: one pass
+    uint32_t bh[kRhoNb][2];  // lo parts are used at once: one pass
 #pragma unroll
-    for (int j = 0; j < kLdaNb; ++j) {
+    for (int j = 0; j < kRhoNb; ++j) {
       if (j < mine) {
         const float* b = pb + j * 8 * bs + kk;
         uint32_t bl[2];
@@ -444,13 +566,13 @@ __device__ __forceinline__ void rho_stage(const float* pa, const float* pb,
       }
     }
 #pragma unroll
-    for (int j = 0; j < kLdaNb; ++j)
+    for (int j = 0; j < kRhoNb; ++j)
       if (j < mine) {
         mma_tf32(s[0][j], al[0], bh[j][0], bh[j][1]);
         mma_tf32(s[1][j], al[1], bh[j][0], bh[j][1]);
       }
 #pragma unroll
-    for (int j = 0; j < kLdaNb; ++j)
+    for (int j = 0; j < kRhoNb; ++j)
       if (j < mine) {
         mma_tf32(s[0][j], ah[0], bh[j][0], bh[j][1]);
         mma_tf32(s[1][j], ah[1], bh[j][0], bh[j][1]);
@@ -459,72 +581,138 @@ __device__ __forceinline__ void rho_stage(const float* pa, const float* pb,
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < kLdaNb; ++j)
+    for (int j = 0; j < kRhoNb; ++j)
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[i][j][r] += s[i][j][r];
 }
 
-// rho += sum over a finished pass's mu of phi_D AO, from the accumulators
-// (fragment rows mu0 + 8 j, mu0 = 8 (pass base + first) + 2 t)
+// q += the sums over a finished pass's mu, from the accumulators (fragment
+// rows mu0 + 8 j, mu0 = 8 (pass base + first) + 2 t; points p0 + 16 i (+ 8)):
+// q[0] of phi_D AO against the staged AO tile, and (GGA) q[1 + k] of phi_D
+// dAO_k, read once from the gradient planes at the fragment positions (the
+// lanes of a row group read 8 consecutive points: whole 32-byte sectors).
+// go: the offset of (row 0, point p0 of the tile) in the planes.
+template <int NQ>
 __device__ __forceinline__ void rho_fold(const float* ao_s, int p0, int mu0,
                                          int mine,
-                                         const float (&acc)[2][kLdaNb][4],
-                                         float (&rho)[2][2]) {
+                                         const float (&acc)[2][kRhoNb][4],
+                                         GradPlanes gp, size_t go,
+                                         int gpad, float (&q)[NQ][2][2]) {
 #pragma unroll
-  for (int j = 0; j < kLdaNb; ++j) {
+  for (int j = 0; j < kRhoNb; ++j) {
     if (j < mine) {
-      const float* a0 = ao_s + (size_t)(mu0 + 8 * j) * kLdaColStride + p0;
-      const float* a1 = a0 + kLdaColStride;
+      const float* a0 = ao_s + (size_t)(mu0 + 8 * j) * kRhoColStride + p0;
+      const float* a1 = a0 + kRhoColStride;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        rho[i][0] += acc[i][j][0] * a0[16 * i] + acc[i][j][1] * a1[16 * i];
-        rho[i][1] += acc[i][j][2] * a0[16 * i + 8] + acc[i][j][3] * a1[16 * i + 8];
+        q[0][i][0] += acc[i][j][0] * a0[16 * i] + acc[i][j][1] * a1[16 * i];
+        q[0][i][1] += acc[i][j][2] * a0[16 * i + 8] + acc[i][j][3] * a1[16 * i + 8];
+      }
+      if constexpr (NQ == 4) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          const float* d0 = gp.g[k] + go + (size_t)(mu0 + 8 * j) * gpad;
+          const float* d1 = d0 + gpad;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            q[1 + k][i][0] += acc[i][j][0] * __ldg(d0 + 16 * i) +
+                              acc[i][j][1] * __ldg(d1 + 16 * i);
+            q[1 + k][i][1] += acc[i][j][2] * __ldg(d0 + 16 * i + 8) +
+                              acc[i][j][3] * __ldg(d1 + 16 * i + 8);
+          }
+        }
       }
     }
   }
 }
 
-// The tile's rho (over the four lanes of a row group by shuffles, then the
-// four warp columns through red_s, in a fixed order), the functional,
-// s_g = w vrho and the tile's E partial (a fixed tree).  gtid: the thread
-// in its group; bar: the group's barrier.
+// A finished pass's sums into red_s[q][wn][point]: over the four lanes of a
+// row group by shuffles, then lane t == 0 stores them (first pass) or adds
+// them (later passes).  Each entry has one owner, so passes need no barrier,
+// and q is live only while a pass is folded.
+template <int NQ>
+__device__ __forceinline__ void rho_pass_store(float (&q)[NQ][2][2],
+                                               float (*red_s)[4][kRhoCols],
+                                               int wn, int t, int p0,
+                                               bool first_pass) {
+#pragma unroll
+  for (int c = 0; c < NQ; ++c)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v = q[c][i][h];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if (t == 0) {
+          float& r = red_s[c][wn][p0 + 16 * i + 8 * h];
+          r = first_pass ? v : r + v;
+        }
+      }
+}
+
+// One pass of the rho body: fold the accumulators and store the sums
+template <int NQ>
+__device__ __forceinline__ void rho_pass_end(const float* ao_s, int p0,
+                                             int mu0, int mine,
+                                             const float (&acc)[2][kRhoNb][4],
+                                             GradPlanes gp, size_t go,
+                                             int gpad,
+                                             float (*red_s)[4][kRhoCols],
+                                             int wn, int t, bool first_pass) {
+  float q[NQ][2][2] = {};
+  rho_fold<NQ>(ao_s, p0, mu0, mine, acc, gp, go, gpad, q);
+  rho_pass_store<NQ>(q, red_s, wn, t, p0, first_pass);
+}
+
+// The tile's sums per point over the four warp columns of red_s (a fixed
+// order), the functional, s_g = w vrho, (GGA) u_k,g = 2 w vsigma grad_k rho
+// with grad_k rho = 2 sum phi_D dAO_k, and the tile's E partial (a fixed
+// tree).  gtid: the thread in its group; bar: the group's barrier.
 template <int KIND>
-__device__ __forceinline__ void rho_finish(float (&rho)[2][2],
-                                           float (*red_s)[kLdaCols], int gtid,
-                                           int wn, int t, int p0, int tile,
-                                           int bar, const float* wt,
-                                           float* s_out, float* e_part) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      rho[i][h] += __shfl_xor_sync(0xffffffffu, rho[i][h], 1);
-      rho[i][h] += __shfl_xor_sync(0xffffffffu, rho[i][h], 2);
-      if (t == 0) red_s[wn][p0 + 16 * i + 8 * h] = rho[i][h];
-    }
+__device__ __forceinline__ void rho_finish(float (*red_s)[4][kRhoCols],
+                                           int gtid, int tile, int bar,
+                                           int gpad, const float* wt,
+                                           float* s_out, float* u_out,
+                                           float* e_part) {
+  constexpr int NQ = rho_nq(KIND);
   bar_sync(bar);
-  const int g = tile * kLdaCols + gtid;
+  const int g = tile * kRhoCols + gtid;
   float we = 0.f;
-  if (gtid < kLdaCols) {
-    const float r = (red_s[0][gtid] + red_s[1][gtid]) +
-                    (red_s[2][gtid] + red_s[3][gtid]);
+  if (gtid < kRhoCols) {
+    float v[NQ];
+#pragma unroll
+    for (int c = 0; c < NQ; ++c)
+      v[c] = (red_s[c][0][gtid] + red_s[c][1][gtid]) +
+             (red_s[c][2][gtid] + red_s[c][3][gtid]);
+    float sigma = 0.f, gr[3] = {};
+    if constexpr (NQ == 4) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) gr[k] = 2.f * v[1 + k];
+      sigma = gr[0] * gr[0] + gr[1] * gr[1] + gr[2] * gr[2];
+    }
     float e, vr, vs;
-    xc::eval_point<KIND>(r, 0.f, &e, &vr, &vs);
+    xc::eval_point<KIND>(v[0], sigma, &e, &vr, &vs);
     const float w = wt[g];
     s_out[g] = w * vr;
+    if constexpr (NQ == 4) {
+      const float wvs = 2.f * w * vs;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) u_out[(size_t)k * gpad + g] = wvs * gr[k];
+    }
     we = __fmul_rn(w, e);
   }
   bar_sync(bar);
-  if (gtid < kLdaCols) red_s[0][gtid] = we;
+  if (gtid < kRhoCols) red_s[0][0][gtid] = we;
   bar_sync(bar);
-  for (int h = kLdaCols / 2; h > 0; h >>= 1) {
-    if (gtid < h) red_s[0][gtid] += red_s[0][gtid + h];
+  for (int h = kRhoCols / 2; h > 0; h >>= 1) {
+    if (gtid < h) red_s[0][0][gtid] += red_s[0][0][gtid + h];
     bar_sync(bar);
   }
-  if (gtid == 0) e_part[tile] = red_s[0][0];
+  if (gtid == 0) e_part[tile] = red_s[0][0][0];
 }
 
-// xc_lda_rho_kernel (streaming D, any npad <= 384): one block of 8 warps per
+// xc_rho_kernel (streaming D, any npad <= 384): one block of 8 warps per
 // column tile.  D streams through a ring of 3 slabs (cp.async, loads issued
 // 2 stages ahead; slab rows = the pass's mu, stride 36: B fragment loads hit
 // banks 4g + t); the AO rows of each 32-deep stage arrive with the first
@@ -532,19 +720,21 @@ __device__ __forceinline__ void rho_finish(float (&rho)[2][2],
 // takes 3 passes, npad <= 160 one.
 template <int KIND>
 __global__ void __launch_bounds__(256, 2)
-xc_lda_rho_kernel(int npad, int gpad, const float* __restrict__ dm,
-                  const float* __restrict__ aot, const float* __restrict__ wt,
-                  float* __restrict__ s_out, float* __restrict__ e_part) {
+xc_rho_kernel(int npad, int gpad, const float* __restrict__ dm,
+              const float* __restrict__ aot, GradPlanes gp,
+              const float* __restrict__ wt, float* __restrict__ s_out,
+              float* __restrict__ u_out, float* __restrict__ e_part) {
+  constexpr int NQ = rho_nq(KIND);
   extern __shared__ __align__(16) float smem[];
-  __shared__ float red_s[4][kLdaCols];
-  const int per = lda_pass_tiles(npad);
+  __shared__ float red_s[NQ][4][kRhoCols];
+  const int per = rho_pass_tiles(npad);
   float* ao_s = smem;                                // [npad][72]
-  float* d_s = smem + (size_t)npad * kLdaColStride;  // [3][per * 8][36]
+  float* d_s = smem + (size_t)npad * kRhoColStride;  // [3][per * 8][36]
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, t = lane % 4;
   const int wm = warp % 2, wn = warp / 2;
   const int p0 = wm * 32 + g;
-  const int col0 = blockIdx.x * kLdaCols;  // gpad % 1024 == 0
+  const int col0 = blockIdx.x * kRhoCols;  // gpad % 1024 == 0
   const int ntn = npad / 8;
   const int nks = (npad + kTk - 1) / kTk;
   const int nsteps = (ntn + per - 1) / per * nks;
@@ -563,9 +753,9 @@ xc_lda_rho_kernel(int npad, int gpad, const float* __restrict__ dm,
                  dm + (size_t)(base * 8 + r) * npad + k0 + c);
     }
     if (step < nks) {
-      for (int i = tid; i < kw * (kLdaCols / 4); i += 256) {
-        const int r = k0 + i / (kLdaCols / 4), c = i % (kLdaCols / 4) * 4;
-        cp_async16(ao_s + r * kLdaColStride + c,
+      for (int i = tid; i < kw * (kRhoCols / 4); i += 256) {
+        const int r = k0 + i / (kRhoCols / 4), c = i % (kRhoCols / 4) * 4;
+        cp_async16(ao_s + r * kRhoColStride + c,
                    aot + (size_t)r * gpad + col0 + c);
       }
     }
@@ -575,8 +765,7 @@ xc_lda_rho_kernel(int npad, int gpad, const float* __restrict__ dm,
     cp_async_commit();
   }
 
-  float acc[2][kLdaNb][4];
-  float rho[2][2] = {};  // points p0 + 16 i (+ 8)
+  float acc[2][kRhoNb][4];
   for (int step = 0; step < nsteps; ++step) {
     cp_async_wait<kRhoStages - 2>();
     __syncthreads();  // this stage is in; every warp is done with step - 1
@@ -590,35 +779,38 @@ xc_lda_rho_kernel(int npad, int gpad, const float* __restrict__ dm,
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int j = 0; j < kLdaNb; ++j)
+        for (int j = 0; j < kRhoNb; ++j)
 #pragma unroll
           for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
     }
     const float* db = d_s + (step % kRhoStages) * per * 8 * kSlabStride;
-    rho_stage(ao_s + (size_t)(k0 + t) * kLdaColStride + p0,
+    rho_stage(ao_s + (size_t)(k0 + t) * kRhoColStride + p0,
               db + (first * 8 + g) * kSlabStride + t, kSlabStride,
               min(kTk, npad - k0), mine, acc);
-    if (ks == nks - 1) rho_fold(ao_s, p0, (base + first) * 8 + 2 * t, mine, acc, rho);
+    if (ks == nks - 1)
+      rho_pass_end<NQ>(ao_s, p0, (base + first) * 8 + 2 * t, mine, acc, gp,
+                       (size_t)col0 + p0, gpad, red_s, wn, t, base == 0);
   }
-  rho_finish<KIND>(rho, red_s, tid, wn, t, p0, blockIdx.x, 0, wt, s_out,
-                   e_part);
+  rho_finish<KIND>(red_s, tid, blockIdx.x, 0, gpad, wt, s_out, u_out, e_part);
 }
 
-// xc_lda_rho_res_kernel (resident D, npad <= 176): persistent, one block of
-// two 8-warp groups per SM.  D is staged once per block and stays; each
-// group walks its own column tiles (tile = 2 block + group, then + 2 grid),
-// staging the tile's AO with one cp.async wait and its own barrier, so no
-// barrier or D copy sits inside the product.  Group 0's first tile loads
-// with D, group 1's after, so one group's loads and functional overlap the
-// other's products.  Same products and sums as xc_lda_rho_kernel.
+// xc_rho_res_kernel (resident D, npad <= 176 for K2, <= 168 for K1):
+// persistent, one block of two 8-warp groups per SM.  D is staged once per
+// block and stays; each group walks its own column tiles (tile = 2 block +
+// group, then + 2 grid), staging the tile's AO with one cp.async wait and
+// its own barrier, so no barrier or D copy sits inside the product.  Group
+// 0's first tile loads with D, group 1's after, so one group's loads, fold
+// and functional overlap the other's products.  Same products and sums as
+// xc_rho_kernel.
 template <int KIND>
 __global__ void __launch_bounds__(kResThreads, 1)
-xc_lda_rho_res_kernel(int npad, int gpad, const float* __restrict__ dm,
-                      const float* __restrict__ aot,
-                      const float* __restrict__ wt, float* __restrict__ s_out,
-                      float* __restrict__ e_part) {
+xc_rho_res_kernel(int npad, int gpad, const float* __restrict__ dm,
+                  const float* __restrict__ aot, GradPlanes gp,
+                  const float* __restrict__ wt, float* __restrict__ s_out,
+                  float* __restrict__ u_out, float* __restrict__ e_part) {
+  constexpr int NQ = rho_nq(KIND);
   extern __shared__ __align__(16) float smem[];
-  __shared__ float red_s[2][4][kLdaCols];
+  __shared__ float red_s[2][NQ][4][kRhoCols];
   const int ds = npad + 4;
   const float* d_s = smem;  // [npad][npad + 4]
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -626,16 +818,15 @@ xc_lda_rho_res_kernel(int npad, int gpad, const float* __restrict__ dm,
   const int g = lane / 4, t = lane % 4;
   const int wm = wl % 2, wn = wl / 2;
   const int p0 = wm * 32 + g;
-  float* ao_s = smem + (size_t)npad * ds + (size_t)grp * npad * kLdaColStride;
-  const int ntile = gpad / kLdaCols, ntn = npad / 8;
-  const int per = lda_pass_tiles(npad);
-  const int nks = (npad + kTk - 1) / kTk;
+  float* ao_s = smem + (size_t)npad * ds + (size_t)grp * npad * kRhoColStride;
+  const int ntile = gpad / kRhoCols, ntn = npad / 8;
+  const int per = rho_pass_tiles(npad);
 
   auto load_ao = [&](int tile) {
-    for (int i = gtid; i < npad * (kLdaCols / 4); i += 256) {
-      const int r = i / (kLdaCols / 4), c = i % (kLdaCols / 4) * 4;
-      cp_async16(ao_s + r * kLdaColStride + c,
-                 aot + (size_t)r * gpad + (size_t)tile * kLdaCols + c);
+    for (int i = gtid; i < npad * (kRhoCols / 4); i += 256) {
+      const int r = i / (kRhoCols / 4), c = i % (kRhoCols / 4) * 4;
+      cp_async16(ao_s + r * kRhoColStride + c,
+                 aot + (size_t)r * gpad + (size_t)tile * kRhoCols + c);
     }
   };
   for (int i = tid; i < npad * (npad / 4); i += kResThreads) {
@@ -655,24 +846,26 @@ xc_lda_rho_res_kernel(int npad, int gpad, const float* __restrict__ dm,
       cp_async_wait<0>();
       bar_sync(1 + grp);
     }
-    float rho[2][2] = {};
     for (int base = 0; base < ntn; base += per) {
       int first, mine;
       pass_share(min(per, ntn - base), wn, first, mine);
-      float acc[2][kLdaNb][4] = {};
+      float acc[2][kRhoNb][4] = {};
       for (int k0 = 0; k0 < npad; k0 += kTk)
-        rho_stage(ao_s + (size_t)(k0 + t) * kLdaColStride + p0,
+        rho_stage(ao_s + (size_t)(k0 + t) * kRhoColStride + p0,
                   d_s + (size_t)((base + first) * 8 + g) * ds + k0 + t, ds,
                   min(kTk, npad - k0), mine, acc);
-      rho_fold(ao_s, p0, (base + first) * 8 + 2 * t, mine, acc, rho);
+      rho_pass_end<NQ>(ao_s, p0, (base + first) * 8 + 2 * t, mine, acc, gp,
+                       (size_t)tile * kRhoCols + p0, gpad, red_s[grp], wn, t,
+                       base == 0);
     }
-    rho_finish<KIND>(rho, red_s[grp], gtid, wn, t, p0, tile, 1 + grp, wt,
-                     s_out, e_part);
+    rho_finish<KIND>(red_s[grp], gtid, tile, 1 + grp, gpad, wt, s_out, u_out,
+                     e_part);
   }
 }
 
-// V tile (r, c) of warp l (l = 0, 1, ..: the upper triangle of the T x T
-// grid of 32 x 32 tiles, row by row; engine/fused_xc.py::lda_v_tiles)
+// Entry l (l = 0, 1, ..) of the upper triangle of a T x T grid, row by row:
+// K2's V tile of warp l (engine/fused_xc.py::lda_v_tiles), K1's pair of row
+// groups of block l and tile of warp l within one group (gga_v_tiles)
 __device__ __forceinline__ void upper_tile(int l, int T, int& r, int& c) {
   r = 0;
   while (l >= T - r) {
@@ -682,9 +875,103 @@ __device__ __forceinline__ void upper_tile(int l, int T, int& r, int& c) {
   c = r + l;
 }
 
-// xc_lda_v_kernel: V_part[chunk] = AO diag(s) AO^T over one grid chunk, for
-// the 32 x 32 output tiles on or above the diagonal, one tile per warp (up
-// to 16 a block).  Both operands are AO rows with the grid axis as k, so
+// which 16 x 8 sub-tiles of the 32 x 32 V tile at (m_base, n_base) a warp
+// computes: inside npad and not wholly below the diagonal
+__device__ __forceinline__ void upper_subtiles(bool active, int npad,
+                                               int m_base, int n_base,
+                                               bool (&on)[2][4]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m0 = m_base + 16 * i, n0 = n_base + 8 * j;
+      on[i][j] = active && m0 < npad && n0 < npad && n0 + 8 > m0;
+    }
+}
+
+// st += X Y^T over one 8-deep k step for a warp's 32 x 32 tile, both
+// operands rows of staged slabs ([row][point], row stride ls): x =
+// &X[first row + g][kk + t], y = &Y[first column + g][kk + t]; A fragments
+// from X rows + 16 i, B fragments from Y rows + 8 j.  kScale: Y scaled by
+// sc0 / sc1 (points kk + t, kk + t + 4) at fragment load (K2's s AO).
+// Fragments of sub-tiles that are off are not loaded (they may lie beyond
+// the slab); each of the three TF32 products is issued over all sub-tiles
+// before the next (mma_tf32's note).
+template <bool kScale>
+__device__ __forceinline__ void tile_mma3(float (&st)[2][4][4],
+                                          const bool (&on)[2][4],
+                                          const float* x, const float* y,
+                                          int ls, float sc0, float sc1) {
+  uint32_t ah[2][4] = {}, al[2][4] = {}, bh[4][2] = {}, bl[4][2] = {};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!(on[i][0] | on[i][1] | on[i][2] | on[i][3])) continue;
+    const float* pa = x + 16 * i * ls;
+    split_tf32(pa[0], ah[i][0], al[i][0]);
+    split_tf32(pa[8 * ls], ah[i][1], al[i][1]);
+    split_tf32(pa[4], ah[i][2], al[i][2]);
+    split_tf32(pa[8 * ls + 4], ah[i][3], al[i][3]);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (!(on[0][j] | on[1][j])) continue;
+    const float* pb = y + 8 * j * ls;
+    if constexpr (kScale) {
+      split_tf32(__fmul_rn(sc0, pb[0]), bh[j][0], bl[j][0]);
+      split_tf32(__fmul_rn(sc1, pb[4]), bh[j][1], bl[j][1]);
+    } else {
+      split_tf32(pb[0], bh[j][0], bl[j][0]);
+      split_tf32(pb[4], bh[j][1], bl[j][1]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (on[i][j]) mma_tf32(st[i][j], ah[i], bl[j][0], bl[j][1]);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (on[i][j]) mma_tf32(st[i][j], al[i], bh[j][0], bh[j][1]);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (on[i][j]) mma_tf32(st[i][j], ah[i], bh[j][0], bh[j][1]);
+}
+
+// acc += st (a slab's partial sums), and the finished tile's sub-tiles into
+// one chunk's partial (ldv, ldv)
+__device__ __forceinline__ void add_tile(float (&acc)[2][4][4],
+                                         const float (&st)[2][4][4]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] += st[i][j][r];
+}
+__device__ __forceinline__ void store_tile(const float (&acc)[2][4][4],
+                                           const bool (&on)[2][4], float* out,
+                                           int ldv, int m_base, int n_base,
+                                           int g, int t) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (!on[i][j]) continue;
+      const int row = m_base + 16 * i + g, col = n_base + 8 * j + 2 * t;
+      *reinterpret_cast<float2*>(&out[(size_t)row * ldv + col]) =
+          make_float2(acc[i][j][0], acc[i][j][1]);
+      *reinterpret_cast<float2*>(&out[(size_t)(row + 8) * ldv + col]) =
+          make_float2(acc[i][j][2], acc[i][j][3]);
+    }
+}
+
+// xc_lda_v_kernel (K2): V_part[chunk] = AO diag(s) AO^T over one grid chunk,
+// for the 32 x 32 output tiles on or above the diagonal, one tile per warp
+// (up to 16 a block).  Both operands are AO rows with the grid axis as k, so
 // one staged slab ([row][point], stride 36, banks 4g + t) feeds both and
 // the B operand s_g AO is formed at fragment load: no B^T plane exists.
 // Slabs of 32 points stream through a ring of 4 (cp.async, loads issued 3
@@ -736,14 +1023,8 @@ xc_lda_v_kernel(int npad, int gpad, int chunk, int ldv,
   }
 
   const int m_base = tr * kVTile, n_base = tc * kVTile;
-  bool on[2][4];  // which 16 x 8 sub-tiles this warp computes
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m0 = m_base + 16 * i, n0 = n_base + 8 * j;
-      on[i][j] = active && m0 < npad && n0 < npad && n0 + 8 > m0;
-    }
+  bool on[2][4];
+  upper_subtiles(active, npad, m_base, n_base, on);
   float acc[2][4][4] = {};
   for (int sl = 0; sl < nsl; ++sl) {
     cp_async_wait<kVStages - 2>();
@@ -755,61 +1036,207 @@ xc_lda_v_kernel(int npad, int gpad, int chunk, int ldv,
       const float* sb = s_s + (sl % kVStages) * kTk;
       float st[2][4][4] = {};  // this slab's partial sums
 #pragma unroll
-      for (int kk = 0; kk < kTk; kk += 8) {
-        uint32_t ah[2][4] = {}, al[2][4] = {}, bh[4][2] = {}, bl[4][2] = {};
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          if (!(on[i][0] | on[i][1] | on[i][2] | on[i][3])) continue;
-          const float* pa = ab + (m_base + 16 * i + g) * kSlabStride + kk + t;
-          split_tf32(pa[0], ah[i][0], al[i][0]);
-          split_tf32(pa[8 * kSlabStride], ah[i][1], al[i][1]);
-          split_tf32(pa[4], ah[i][2], al[i][2]);
-          split_tf32(pa[8 * kSlabStride + 4], ah[i][3], al[i][3]);
-        }
-        const float s0 = sb[kk + t], s1 = sb[kk + t + 4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (!(on[0][j] | on[1][j])) continue;
-          const float* pb = ab + (n_base + 8 * j + g) * kSlabStride + kk + t;
-          split_tf32(__fmul_rn(s0, pb[0]), bh[j][0], bl[j][0]);
-          split_tf32(__fmul_rn(s1, pb[4]), bh[j][1], bl[j][1]);
-        }
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (on[i][j]) mma_tf32(st[i][j], ah[i], bl[j][0], bl[j][1]);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (on[i][j]) mma_tf32(st[i][j], al[i], bh[j][0], bh[j][1]);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (on[i][j]) mma_tf32(st[i][j], ah[i], bh[j][0], bh[j][1]);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) acc[i][j][r] += st[i][j][r];
+      for (int kk = 0; kk < kTk; kk += 8)
+        tile_mma3<true>(st, on, ab + (m_base + g) * kSlabStride + kk + t,
+                        ab + (n_base + g) * kSlabStride + kk + t, kSlabStride,
+                        sb[kk + t], sb[kk + t + 4]);
+      add_tile(acc, st);
     }
   }
-  float* out = v_part + (size_t)blockIdx.y * ldv * ldv;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (!on[i][j]) continue;
-      const int row = m_base + 16 * i + g, col = n_base + 8 * j + 2 * t;
-      *reinterpret_cast<float2*>(&out[(size_t)row * ldv + col]) =
-          make_float2(acc[i][j][0], acc[i][j][1]);
-      *reinterpret_cast<float2*>(&out[(size_t)(row + 8) * ldv + col]) =
-          make_float2(acc[i][j][2], acc[i][j][3]);
+  store_tile(acc, on, v_part + (size_t)blockIdx.y * ldv * ldv, ldv, m_base,
+             n_base, g, t);
+}
+
+// xc_gga_v_kernel (K1): V_part[y] = A B^T + B A^T summed over the grid
+// slabs of partial y (A = AO, B = s AO + u_0 dAO_0 + u_1 dAO_1 + u_2 dAO_2,
+// both (npad, points)), for the 32 x 32 tiles (r, c), r <= c, whose tile
+// rows lie in one pair (ga, gb), ga <= gb, of row groups (gga_group_tiles;
+// block x = the pair's index in upper_tile order), one tile a warp (warp
+// l: tile l of the group's upper triangle if ga == gb, else row l / tb,
+// column l % tb).  The block stages the rows of its two groups only: group
+// a's first (local rows [0, na)), then group b's.  Partial y sums slabs y,
+// y + nchunk, ..: the blocks running at one time read one stretch of each
+// row.
+// Warp-specialized: the last warpgroup produces.  Its 128 lanes stream the
+// four planes' 16-point slabs and the slab's s and u through a ring of 4 or
+// 3 stages (gga_v_stages) with cp.async, each lane signalling the slot's
+// "full" barrier when its copies land, and refill a slot once the consumers
+// release it on its "empty" barrier: they run up to a ring ahead and never
+// wait on the products.  The other warps (the consumers, whole warpgroups)
+// form B's slab in shared memory in one pass per slab (each element once, a
+// slab ahead of the products that read it) and run the products; they
+// synchronize among themselves with one named barrier per slab.  kShift
+// (where shared memory holds one block an SM anyway): the consumers are
+// whole warpgroups and setmaxnreg hands them the producers' registers; else
+// the block stays small enough for two blocks an SM.  No B^T plane exists.
+// Sub-tiles wholly below the diagonal or beyond npad are skipped.  v_part
+// is (nchunk, ldv, ldv); only the upper sub-tiles are written, with V + V^T
+// (the reduce halves it).
+template <bool kShift>
+__global__ void __launch_bounds__(kGVThreads, 1)
+xc_gga_v_kernel(int npad, int gpad, int ldv, const float* __restrict__ aot,
+                GradPlanes gp, const float* __restrict__ s_in,
+                const float* __restrict__ u_in, float* __restrict__ v_part) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ __align__(8) uint64_t full_bar[4], empty_bar[4];
+  const int R = gga_v_rows(npad);
+  const int nst = gga_v_stages(npad);          // ring stages, 4 or 3
+  const size_t ps = gga_v_stage(npad);         // floats per ring stage
+  const size_t pl = (size_t)R * kGSlabStride;  // floats per plane slab
+  float* ring = smem;                          // [nst][4][R][20] + [4][16]
+  float* b_s = smem + nst * ps;                // [2][R][20]
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int ncons = blockDim.x / 32 - kGProducers;  // consumer warps
+  const int ncth = 32 * ncons;                 // consumer threads
+  const int g = lane / 4, t = lane % 4;
+  const int T = ldv / kVTile;
+  const int GT = gga_group_tiles(T);
+  const int NG = (T + GT - 1) / GT;
+  int ga, gb;
+  upper_tile(blockIdx.x, NG, ga, gb);
+  const int ra0 = ga * GT * kVTile, rb0 = gb * GT * kVTile;
+  const int na = ga == gb ? 0 : GT * kVTile;    // group a's rows (whole)
+  const int vb = min(GT * kVTile, npad - rb0);  // group b's rows inside npad
+  const int nv = na + vb;                       // staged rows that hold data
+  const int nrow = na + (vb + 15) / 16 * 16;    // rows the sub-tiles reach
+  const int nchunk = gridDim.y, nslab = gpad / kGSlab;
+  const int nsl = (nslab - blockIdx.y + nchunk - 1) / nchunk;
+
+  // rows nv..nrow of every plane slab stay zero (never staged), so B's
+  // rows there are zero too
+  for (int i = tid; i < nst * 4 * (nrow - nv) * kGSlabStride; i += blockDim.x) {
+    const int per = (nrow - nv) * kGSlabStride;
+    const int sp = i / per, o = i % per;  // (stage, plane)
+    ring[(size_t)(sp / 4) * ps + (size_t)(sp % 4) * pl +
+         (size_t)nv * kGSlabStride + o] = 0.f;
+  }
+  if (tid == 0) {
+    for (int i = 0; i < nst; ++i) {
+      mbar_init(&full_bar[i], 32 * kGProducers);  // the producers' lanes
+      mbar_init(&empty_bar[i], ncons);   // one arrival a consumer warp
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= ncons) {  // the producers
+    if constexpr (kShift)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kGProdRegs));
+    for (int x = 0; x < nsl; ++x) {
+      const int slot = x % nst, fill = x / nst;
+      if (fill > 0) mbar_wait(&empty_bar[slot], (fill - 1) & 1);
+      const size_t k0 = (size_t)(blockIdx.y + x * nchunk) * kGSlab;
+      float* dst = ring + (size_t)slot * ps;
+      // lane l copies pieces l, l + 32, ..: plane p, local row r, 16-byte
+      // piece c of its row (stepping by 32 pieces is 8 rows)
+      const int pt = (warp - ncons) * 32 + lane;
+      int p = 0, r = pt / 4;
+      const int c = lane % 4 * 4;
+      const float* src = aot;
+      while (r >= nv) {
+        r -= nv;
+        src = gp.at(p++);
+      }
+#pragma unroll 1
+      for (int i = pt; i < 16 * nv; i += 32 * kGProducers) {
+        const int row = r < na ? ra0 + r : rb0 + r - na;
+        cp_async16(dst + p * pl + r * kGSlabStride + c,
+                   src + (size_t)row * gpad + k0 + c);
+        r += 8 * kGProducers;
+        while (r >= nv && p < 3) {
+          r -= nv;
+          src = gp.at(p++);
+        }
+      }
+      if (pt < 16) {  // s, then u_0..2
+        const int q = pt / 4;
+        cp_async16(dst + 4 * pl + q * kGSlab + c,
+                   (q == 0 ? s_in : u_in + (size_t)(q - 1) * gpad) + k0 + c);
+      }
+      mbar_cp_async_arrive(&full_bar[slot]);
+    }
+    return;
+  }
+
+  // the consumers
+  if constexpr (kShift)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kGConsRegs));
+  const int tb = min(GT, T - gb * GT);  // group b's tile rows
+  const int ntiles = ga == gb ? tb * (tb + 1) / 2 : GT * tb;
+  const bool active = warp < ntiles;
+  int tr = 0, tc = 0;
+  if (active) {
+    if (ga == gb) {
+      upper_tile(warp, tb, tr, tc);
+      tr += gb * GT;
+      tc += gb * GT;
+    } else {
+      tr = ga * GT + warp / tb;
+      tc = gb * GT + warp % tb;
+    }
+  }
+  const int m_base = tr * kVTile, n_base = tc * kVTile;
+  const int lr = (ga == gb ? m_base - rb0 : m_base - ra0);  // local rows
+  const int lc = na + n_base - rb0;
+
+  // B's slab of slab x once it is in, each product rounded and the sum
+  // taken left to right (the plain version's order); four points a thread
+  // and step
+  auto form_b = [&](int x) {
+    mbar_wait(&full_bar[x % nst], (x / nst) & 1);
+    const float* src = ring + (size_t)(x % nst) * ps;
+    const float4* su = reinterpret_cast<const float4*>(src + 4 * pl);
+    float* dst = b_s + (x % 2) * pl;
+    for (int i = tid; i < nrow * (kGSlab / 4); i += ncth) {
+      const int k4 = i % (kGSlab / 4);
+      const size_t o = (size_t)(i / (kGSlab / 4)) * kGSlabStride + 4 * k4;
+      float4 b;
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const float4 xv = *reinterpret_cast<const float4*>(src + p * pl + o);
+        const float4 c = su[p * (kGSlab / 4) + k4];
+        if (p == 0) {
+          b = make_float4(__fmul_rn(c.x, xv.x), __fmul_rn(c.y, xv.y),
+                          __fmul_rn(c.z, xv.z), __fmul_rn(c.w, xv.w));
+        } else {
+          b.x = __fadd_rn(b.x, __fmul_rn(c.x, xv.x));
+          b.y = __fadd_rn(b.y, __fmul_rn(c.y, xv.y));
+          b.z = __fadd_rn(b.z, __fmul_rn(c.z, xv.z));
+          b.w = __fadd_rn(b.w, __fmul_rn(c.w, xv.w));
+        }
+      }
+      *reinterpret_cast<float4*>(dst + o) = b;
+    }
+  };
+  if (nsl > 0) form_b(0);
+  asm volatile("bar.sync 1, %0;\n" ::"r"(ncth));  // B(0) is formed
+
+  bool on[2][4];
+  upper_subtiles(active, npad, m_base, n_base, on);
+  float acc[2][4][4] = {};
+  for (int x = 0; x < nsl; ++x) {
+    if (active) {
+      const float* ab = ring + (size_t)(x % nst) * ps;  // AO
+      const float* bb = b_s + (x % 2) * pl;
+      float st[2][4][4] = {};  // this slab's partial sums
+#pragma unroll
+      for (int kk = 0; kk < kGSlab; kk += 8) {
+        const int xo = (lr + g) * kGSlabStride + kk + t;
+        const int yo = (lc + g) * kGSlabStride + kk + t;
+        tile_mma3<false>(st, on, ab + xo, bb + yo, kGSlabStride, 1.f, 1.f);
+        tile_mma3<false>(st, on, bb + xo, ab + yo, kGSlabStride, 1.f, 1.f);
+      }
+      add_tile(acc, st);
+    }
+    if (x + 1 < nsl) form_b(x + 1);
+    // slab x's slot is done with (its planes by form_b(x), its AO now)
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty_bar[x % nst]);
+    // B(x + 1) is formed; every consumer is done reading B(x)
+    asm volatile("bar.sync 1, %0;\n" ::"r"(ncth));
+  }
+  store_tile(acc, on, v_part + (size_t)blockIdx.y * ldv * ldv, ldv, m_base,
+             n_base, g, t);
 }
 
 // A sum over mu of one point's terms: plain f32, or (kSplit2) the bf16 hi
@@ -956,14 +1383,17 @@ xc_v_partial_kernel(int npad, int gpad, int chunk, int ldv,
 }
 
 // V_out (nao x nao) = sym(sum_c V_part[c]); the last block reduces E.
-// kUpper (K2): only the upper triangle of each V_part holds V, which is
-// mirrored; otherwise V_out = (V + V^T) / 2.
-template <bool kUpper>
+// kUpper (K1, K2): only the upper triangle of each V_part is held, which is
+// mirrored and scaled by `scale` (K2 1: V itself; K1 1/2: V + V^T);
+// otherwise V_out = (V + V^T) / 2.  The sums are f32; T is the type the
+// caller takes them in (K1, K2: the f64 of the SCF, so no conversion
+// follows).
+template <bool kUpper, typename T>
 __global__ void __launch_bounds__(kReduceBlock)
-xc_reduce_kernel(int nao, int nchunk, int ldv, int npart_e,
+xc_reduce_kernel(int nao, int nchunk, int ldv, int npart_e, float scale,
                  const float* __restrict__ v_part,
-                 const float* __restrict__ e_part, float* __restrict__ v_out,
-                 float* __restrict__ e_out) {
+                 const float* __restrict__ e_part, T* __restrict__ v_out,
+                 T* __restrict__ e_out) {
   __shared__ float red_s[kReduceBlock];
   const int tid = threadIdx.x;
   if (blockIdx.x == gridDim.x - 1) {
@@ -985,7 +1415,7 @@ xc_reduce_kernel(int nao, int nchunk, int ldv, int npart_e,
   if constexpr (kUpper) {
     const size_t u = (size_t)min(mu, nu) * ldv + max(mu, nu);
     for (int c = 0; c < nchunk; ++c) a += v_part[(size_t)c * ldv * ldv + u];
-    v_out[o] = a;
+    v_out[o] = scale * a;
   } else {
     for (int c = 0; c < nchunk; ++c) {
       const float* p = v_part + (size_t)c * ldv * ldv;
@@ -994,6 +1424,16 @@ xc_reduce_kernel(int nao, int nchunk, int ldv, int npart_e,
     }
     v_out[o] = 0.5f * (a + b);
   }
+}
+
+// dm_p (npad, npad) f32 = the f64 density (nao, nao), zero beyond nao
+__global__ void xc_pad_dm_kernel(int nao, int npad,
+                                 const double* __restrict__ dm,
+                                 float* __restrict__ dm_p) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= npad * npad) return;
+  const int r = i / npad, c = i % npad;
+  dm_p[i] = r < nao && c < nao ? (float)dm[(size_t)r * nao + c] : 0.f;
 }
 
 template <int KIND>
@@ -1038,38 +1478,80 @@ cudaError_t launch_point_var(int var, int npad, int gpad, const float* aot,
   return cudaErrorInvalidValue;
 }
 
-// The rho pass: resident D where it fits in shared memory (npad <= 176),
-// else streaming D
+// Raise a kernel's dynamic shared memory limit on the current device, once
+// for each larger size it is launched with (the call costs host time on
+// every launch otherwise); done: the kernel's sizes so far, per device
+cudaError_t allow_smem(const void* kernel, size_t bytes, size_t (&done)[64]) {
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || dev >= 64 || bytes <= done[dev]) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err == cudaSuccess) done[dev] = bytes;
+  return err;
+}
+
+// The rho pass: resident D where it fits in shared memory beside the
+// kernel's static scratch (npad <= 176 for K2, <= 168 for K1), else
+// streaming D
 template <int KIND>
-cudaError_t launch_lda_rho(int npad, int gpad, const float* dm, const float* aot,
-                           const float* wt, float* s, float* e_part,
-                           cudaStream_t stream) {
-  const int ntile = gpad / kLdaCols;
-  size_t smem = lda_rho_res_smem(npad);
+cudaError_t launch_rho(int npad, int gpad, const float* dm, const float* aot,
+                       const GradPlanes& gp, const float* wt, float* s,
+                       float* u, float* e_part, cudaStream_t stream) {
+  constexpr int NQ = rho_nq(KIND);
+  const int ntile = gpad / kRhoCols;
+  size_t smem = rho_res_smem(npad);
   cudaError_t err;
-  if (smem <= kMaxDynSmem) {
-    int dev, nsm;
+  if (smem <= kBlockSmem - 2 * rho_red_smem(NQ)) {
+    static int nsm[64] = {};
+    int dev;
     err = cudaGetDevice(&dev);
+    if (err == cudaSuccess && dev < 64 && nsm[dev] == 0)
+      err = cudaDeviceGetAttribute(&nsm[dev], cudaDevAttrMultiProcessorCount,
+                                   dev);
+    static size_t done[64] = {};
     if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(xc_lda_rho_res_kernel<KIND>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem);
+      err = allow_smem((const void*)xc_rho_res_kernel<KIND>, smem, done);
     if (err != cudaSuccess) return err;
-    const int nblk = (ntile + 1) / 2 < nsm ? (ntile + 1) / 2 : nsm;
-    xc_lda_rho_res_kernel<KIND><<<nblk, kResThreads, smem, stream>>>(
-        npad, gpad, dm, aot, wt, s, e_part);
+    const int sms = dev < 64 ? nsm[dev] : 132;
+    const int nblk = (ntile + 1) / 2 < sms ? (ntile + 1) / 2 : sms;
+    xc_rho_res_kernel<KIND><<<nblk, kResThreads, smem, stream>>>(
+        npad, gpad, dm, aot, gp, wt, s, u, e_part);
     return cudaGetLastError();
   }
-  smem = lda_rho_smem(npad);
-  err = cudaFuncSetAttribute(xc_lda_rho_kernel<KIND>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  smem = rho_smem(npad);
+  static size_t done[64] = {};
+  err = allow_smem((const void*)xc_rho_kernel<KIND>, smem, done);
   if (err != cudaSuccess) return err;
-  xc_lda_rho_kernel<KIND><<<ntile, 256, smem, stream>>>(npad, gpad, dm, aot,
-                                                         wt, s, e_part);
+  xc_rho_kernel<KIND><<<ntile, 256, smem, stream>>>(npad, gpad, dm, aot, gp,
+                                                     wt, s, u, e_part);
   return cudaGetLastError();
+}
+
+// K1's V chunk (grid points per partial): a multiple of kGSlab with the V
+// blocks of all partials near one wave of the current device's SMs (two
+// blocks an SM where shared memory holds two) and the partials (nchunk
+// ldv^2 floats) within kVPartFloats.  The kernel makes ceil(gpad / chunk)
+// partials and interleaves their slabs (partial y sums slabs y, y + nchunk,
+// ..).
+cudaError_t gga_v_chunk(int npad, int gpad, int* chunk) {
+  int dev, nsm;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int T = (npad + kVTile - 1) / kVTile, ldv = T * kVTile;
+  const int GT = gga_group_tiles(T), NG = (T + GT - 1) / GT;
+  const int per_sm =
+      gga_v_smem(npad, gga_v_stages(npad)) > kBlockSmem / 2 ? 1 : 2;
+  const int nslab = gpad / kGSlab;
+  int nchunk = per_sm * nsm / (NG * (NG + 1) / 2);
+  const int cap = (int)(kVPartFloats / ((size_t)ldv * ldv));
+  if (nchunk > cap) nchunk = cap;
+  if (nchunk > nslab) nchunk = nslab;
+  if (nchunk < 1) nchunk = 1;
+  *chunk = kGSlab * ((nslab + nchunk - 1) / nchunk);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -1083,7 +1565,8 @@ extern "C" {
 // ldv = 64 ceil(npad / 64), v_out (nao, nao), e_out (1); gx/gy/gz may be
 // null for kinds 0 and 3.  variant: 0 for K1, else the k* bits above
 // (kPhiSplit and kNoPhi exclusive, at most one point bit, the ablations
-// for kinds 1 and 2 only); K2 (kinds 0 and 3, variant 0) is fused_xc_lda.
+// for kinds 1 and 2 only); variant 0 is K1base (kinds 1 and 2); K1 and K2
+// are fused_xc_tc.
 // Returns the CUDA error code of the launches (0 on success).
 int fused_xc(int kind, int variant, int nao, int npad, int gpad, int chunk,
              const float* dm, const float* aot, const float* gx,
@@ -1128,8 +1611,9 @@ int fused_xc(int kind, int variant, int nao, int npad, int gpad, int chunk,
   if (variant & kNoV) {  // V stays zero; the one reduce block sums E
     err = cudaMemsetAsync(v_out, 0, sizeof(float) * nao * (size_t)nao, stream);
     if (err != cudaSuccess) return (int)err;
-    xc_reduce_kernel<false><<<1, kReduceBlock, 0, stream>>>(
-        nao, nchunk, ldv, gpad / kPointBlock, v_part, e_part, v_out, e_out);
+    xc_reduce_kernel<false, float><<<1, kReduceBlock, 0, stream>>>(
+        nao, nchunk, ldv, gpad / kPointBlock, 1.f, v_part, e_part, v_out,
+        e_out);
     return (int)cudaGetLastError();
   }
   xc_v_partial_kernel<<<dim3(ntile, ntile, nchunk), dim3(16, 16), 0, stream>>>(
@@ -1137,48 +1621,107 @@ int fused_xc(int kind, int variant, int nao, int npad, int gpad, int chunk,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int nblk = (nao * nao + kReduceBlock - 1) / kReduceBlock + 1;
-  xc_reduce_kernel<false><<<nblk, kReduceBlock, 0, stream>>>(
-      nao, nchunk, ldv, gpad / kPointBlock, v_part, e_part, v_out, e_out);
+  xc_reduce_kernel<false, float><<<nblk, kReduceBlock, 0, stream>>>(
+      nao, nchunk, ldv, gpad / kPointBlock, 1.f, v_part, e_part, v_out, e_out);
   return (int)cudaGetLastError();
 }
 
-// K2: kinds 0 (LDA) and 3 (HF), no variant.  Shape contract (checked by
-// the Python wrapper): 1 <= nao <= npad <= 384, npad % 8 == 0, gpad % 1024
-// == 0, chunk a positive multiple of 32; dm (npad, npad) with rows and
-// columns beyond nao zero, aot (npad, gpad), wt/s (gpad), e_part (gpad /
-// 64), v_part (ceil(gpad / chunk), ldv, ldv) with ldv = 32 ceil(npad / 32),
-// v_out (nao, nao), e_out (1).  Returns the CUDA error code (0 on success).
-int fused_xc_lda(int kind, int nao, int npad, int gpad, int chunk,
-                 const float* dm, const float* aot, const float* wt, float* s,
-                 float* e_part, float* v_part, float* v_out, float* e_out,
-                 void* stream_ptr) {
+// K1 (kinds 1: PBE, 2: B3LYP) and K2 (kinds 0: LDA, 3: HF), no variant.
+// Shape contract (checked by the Python wrapper): 1 <= nao <= npad <= 384,
+// npad % 8 == 0, gpad % 1024 == 0, chunk a positive multiple of 16 (K1:
+// fused_xc_tc_v_chunk's) or 32 (K2); dm64 (nao, nao) f64 and its f32 padded copy's scratch dm
+// (npad, npad), aot (npad, gpad), wt/s (gpad), e_part (gpad / 64), v_part
+// (ceil(gpad / chunk), ldv, ldv) with ldv = 32 ceil(npad / 32), v_out
+// (nao, nao) and e_out (1) f64; K1 also the gradient planes gx/gy/gz
+// (npad, gpad) and u (3, gpad), null for K2.  Returns the CUDA error code
+// (0 on success).
+int fused_xc_tc(int kind, int nao, int npad, int gpad, int chunk,
+                const double* dm64, float* dm, const float* aot,
+                const float* gx, const float* gy, const float* gz,
+                const float* wt, float* s, float* u, float* e_part,
+                float* v_part, double* v_out, double* e_out,
+                void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const bool gga = kind == 1 || kind == 2;
   if (nao < 1 || nao > npad || npad % 8 != 0 || npad > 384 ||
-      gpad % kPack != 0 || chunk <= 0 || chunk % kTk != 0 ||
-      (kind != 0 && kind != 3))
+      gpad % kPack != 0 || chunk <= 0 || kind < 0 || kind > 3 ||
+      chunk % (gga ? kGSlab : kTk) != 0 ||
+      (gga && (!gx || !gy || !gz || !u)))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = kind == 0
-      ? launch_lda_rho<0>(npad, gpad, dm, aot, wt, s, e_part, stream)
-      : launch_lda_rho<3>(npad, gpad, dm, aot, wt, s, e_part, stream);
+  const GradPlanes gp{{gx, gy, gz}};
+  xc_pad_dm_kernel<<<(npad * npad + 255) / 256, 256, 0, stream>>>(nao, npad,
+                                                                  dm64, dm);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  switch (kind) {
+    case 0: err = launch_rho<0>(npad, gpad, dm, aot, gp, wt, s, u, e_part, stream); break;
+    case 1: err = launch_rho<1>(npad, gpad, dm, aot, gp, wt, s, u, e_part, stream); break;
+    case 2: err = launch_rho<2>(npad, gpad, dm, aot, gp, wt, s, u, e_part, stream); break;
+    default: err = launch_rho<3>(npad, gpad, dm, aot, gp, wt, s, u, e_part, stream); break;
+  }
   if (err != cudaSuccess) return (int)err;
   const int T = (npad + kVTile - 1) / kVTile;
-  const int ntiles = T * (T + 1) / 2;
   const int ldv = T * kVTile;
   const int nchunk = (gpad + chunk - 1) / chunk;
-  const size_t smem = lda_v_smem(npad);
-  err = cudaFuncSetAttribute(xc_lda_v_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  xc_lda_v_kernel<<<dim3((ntiles + kVWarps - 1) / kVWarps, nchunk),
-                    32 * (ntiles < kVWarps ? ntiles : kVWarps), smem, stream>>>(
-      npad, gpad, chunk, ldv, aot, s, v_part);
+  if (gga) {
+    const int GT = gga_group_tiles(T), NG = (T + GT - 1) / GT;
+    const int warps = NG == 1 ? T * (T + 1) / 2 : GT * GT;
+    const size_t smem = gga_v_smem(npad, gga_v_stages(npad));
+    const bool shift = smem > kBlockSmem / 2;
+    const int ncons = shift ? (warps + 3) / 4 * 4 : warps;
+    const dim3 grid(NG * (NG + 1) / 2, nchunk);
+    const int threads = 32 * (ncons + kGProducers);
+    if (shift) {
+      // setmaxnreg moves registers inside the block's own allocation: the
+      // consumers' and the producers' counts must fit in what it was
+      // given, or the consumers would wait for registers forever
+      static int regs = 0;
+      if (regs == 0) {
+        cudaFuncAttributes fa;
+        err = cudaFuncGetAttributes(&fa, (const void*)xc_gga_v_kernel<true>);
+        if (err != cudaSuccess) return (int)err;
+        regs = fa.numRegs;
+      }
+      if (ncons * kGConsRegs + kGProducers * kGProdRegs >
+          (ncons + kGProducers) * regs)
+        return (int)cudaErrorInvalidConfiguration;
+      static size_t done[64] = {};
+      err = allow_smem((const void*)xc_gga_v_kernel<true>, smem, done);
+      if (err != cudaSuccess) return (int)err;
+      xc_gga_v_kernel<true><<<grid, threads, smem, stream>>>(
+          npad, gpad, ldv, aot, gp, s, u, v_part);
+    } else {
+      static size_t done[64] = {};
+      err = allow_smem((const void*)xc_gga_v_kernel<false>, smem, done);
+      if (err != cudaSuccess) return (int)err;
+      xc_gga_v_kernel<false><<<grid, threads, smem, stream>>>(
+          npad, gpad, ldv, aot, gp, s, u, v_part);
+    }
+  } else {
+    const int ntiles = T * (T + 1) / 2;
+    const size_t smem = lda_v_smem(npad);
+    static size_t done[64] = {};
+    err = allow_smem((const void*)xc_lda_v_kernel, smem, done);
+    if (err != cudaSuccess) return (int)err;
+    xc_lda_v_kernel<<<dim3((ntiles + kVWarps - 1) / kVWarps, nchunk),
+                      32 * (ntiles < kVWarps ? ntiles : kVWarps), smem,
+                      stream>>>(npad, gpad, chunk, ldv, aot, s, v_part);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int nblk = (nao * nao + kReduceBlock - 1) / kReduceBlock + 1;
-  xc_reduce_kernel<true><<<nblk, kReduceBlock, 0, stream>>>(
-      nao, nchunk, ldv, gpad / kLdaCols, v_part, e_part, v_out, e_out);
+  xc_reduce_kernel<true, double><<<nblk, kReduceBlock, 0, stream>>>(
+      nao, nchunk, ldv, gpad / kRhoCols, gga ? 0.5f : 1.f, v_part, e_part,
+      v_out, e_out);
   return (int)cudaGetLastError();
+}
+
+// K1's V chunk for these shapes on the current device (gga_v_chunk): the
+// chunk (> 0), or minus the CUDA error code.
+int fused_xc_tc_v_chunk(int npad, int gpad) {
+  int chunk;
+  const cudaError_t err = gga_v_chunk(npad, gpad, &chunk);
+  return err == cudaSuccess ? chunk : -(int)err;
 }
 
 // The kernels' functional alone, elementwise over n points (the

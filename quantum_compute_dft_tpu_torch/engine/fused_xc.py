@@ -18,26 +18,36 @@ them all):
   * ``reduce="split2"``: the Pallas default's 2-pass bf16 row sums of rho,
     grad rho and E; the default "f32" is ``_ENV_VPU_REDUCE``'s plain sum.
 
-K2 (the LDA body with no variant, replacing ``pallas_xc.py:269-291``) has
-a design of its own for Hopper (``csrc/fused_xc.cu``'s header note):
+K1 and K2 (the GGA and LDA bodies with no variant, replacing
+``pallas_xc.py:201-265`` and ``:269-291``) have a design of their own for
+Hopper (``csrc/fused_xc.cu``'s header note), one C entry (``fused_xc_tc``)
+of three kernels:
 
-  * ``xc_lda_rho_kernel`` (or, where D fits in shared memory, npad <= 176,
-    the persistent ``xc_lda_rho_res_kernel``): phi_D on the tensor cores
-    for a 64-point tile and every mu, rho from the accumulators, the
-    functional, s = w vrho and the tile's E partial; phi_D never leaves
-    registers;
-  * ``xc_lda_v_kernel``: V = AO diag(s) AO^T over the 32 x 32 tiles on or
-    above the diagonal, split-K over grid chunks (``lda_v_tiles`` and
-    ``lda_v_chunk`` give the schedule), s AO formed at fragment load, so no
-    B^T plane exists;
-  * the deterministic reduce, which mirrors the upper triangle.
+  * ``xc_rho_kernel`` (or, where D fits in shared memory, npad <= 176 for
+    K2 and <= 168 for K1, the persistent ``xc_rho_res_kernel``): phi_D on
+    the tensor cores for a 64-point tile and every mu, rho (K1: and grad
+    rho, against the gradient planes read once) from the accumulators, the
+    functional, s = w vrho (K1: u_k = 2 w vsigma grad_k rho) and the tile's
+    E partial; phi_D never leaves registers;
+  * V over the 32 x 32 tiles on or above the diagonal, split-K over grid
+    chunks: K2's ``xc_lda_v_kernel`` (V = AO diag(s) AO^T, s AO formed at
+    fragment load; schedule ``lda_v_tiles``/``lda_v_chunk``), K1's
+    ``xc_gga_v_kernel`` (V + V^T = AO B^T + B AO^T with B = s AO + sum_k u_k
+    dAO_k formed slab by slab in shared memory, the planes streamed in by a
+    producer warpgroup; its chunk from the C query ``fused_xc_tc_v_chunk``,
+    which knows the schedule and the device's SMs); no B^T plane exists;
+  * the deterministic reduce, which mirrors the upper triangle (K1: and
+    halves it).
 
 Both products are 3 x TF32 (hi = tf32(x), lo = x - hi; hi.lo + lo.hi +
 hi.hi with f32 sums): f32-class, as the TPU kernel's phi_D at HIGHEST,
 since a coarser phi_D costs SCF cycles (``pallas_xc.py:131-141``).  The old
 design (FP32 FMA tiles, phi_D and B^T planes in HBM, all of V) measured
-4.5-5.0 ms at DHA against 3.8-5.8 ms for the plain version; what bounds the
-new one is in the header note and ``PERF.md``.
+5.4-5.8 ms (K1) and 4.5-5.0 ms (K2) at DHA; it stays as the four-kernel
+pipeline of K3 and the variants, and ``base=True`` runs K1 on it
+(``K1base``, the base the ablations subtract from in
+``tools/torch_xc_sweep.py``).  What bounds the new kernels is in the header
+note and ``PERF.md``.
 
 The SCF passes no variant.  This module builds the kernels at first use
 (nvcc, keyed by a hash of the sources), binds them with ctypes, and keeps
@@ -59,6 +69,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -89,11 +100,12 @@ TILE = 64         # output tile edge of K1's (and the variants') products
 # target (output tiles x grid chunks) blocks of the V partial kernel: the
 # chunk grows with npad so that the partial buffer stays ~V_BLOCKS * 16 KB
 V_BLOCKS = 2048
-# K2 (csrc/fused_xc.cu, xc_lda_*): points per rho block (its E partials),
-# the V output tile edge, V tiles per block (one a warp), the target block
-# count of the V kernel (two waves of the H100's 132 SMs) and the bound on
-# its chunk partials (floats, 32 MB)
-LDA_COLS = 64
+# K1 and K2 (csrc/fused_xc.cu, fused_xc_tc): points per rho block (its E
+# partials), the V output tile edge; K2's V tiles per block (one a warp),
+# the target block count of its V kernel (two waves of the H100's 132 SMs)
+# and the bound on its chunk partials (floats, 32 MB; K1's chunk comes from
+# the C side)
+RHO_COLS = 64
 LDA_V_TILE = 32
 LDA_V_WARPS = 16
 LDA_V_BLOCKS = 264
@@ -106,14 +118,15 @@ _VAR_BITS = {"phi_split": 1, "nophi": 2, "phi3": 1, "noprod": 4,
              "nofunc": 8, "nov": 16, "split2": 32}
 
 # each variant alone, by the LAUNCHES name it counts under -> the keywords
-# of fused_xc (K1: none; tools/torch_xc_sweep.py times them all)
-VARIANTS = {"K1": {}, "K3": {"phi_split": True},
+# of fused_xc (K1: none; K1base: K1 on the four-kernel pipeline, the
+# ablations' base; tools/torch_xc_sweep.py times them all)
+VARIANTS = {"K1": {}, "K1base": {"base": True}, "K3": {"phi_split": True},
             **{a: {"ablate": a} for a in ABLATIONS},
             "split2": {"reduce": "split2"}}
 
 # kernel launches, counted by the wrapper where it launches: K1 (GGA body)
 # and K2 (LDA body) with no variant; a variant counts under its own names
-# instead (K3 for phi_split, the ablation's name, split2)
+# instead (K1base, K3 for phi_split, the ablation's name, split2)
 LAUNCHES = {"K1": 0, "K2": 0, **dict.fromkeys(VARIANTS, 0)}
 
 _LIB = None
@@ -168,8 +181,10 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.fused_xc.argtypes = [i, i, i, i, i, i] + [p] * 12
         lib.fused_xc.restype = i
-        lib.fused_xc_lda.argtypes = [i] * 5 + [p] * 9
-        lib.fused_xc_lda.restype = i
+        lib.fused_xc_tc.argtypes = [i] * 5 + [p] * 14
+        lib.fused_xc_tc.restype = i
+        lib.fused_xc_tc_v_chunk.argtypes = [i, i]
+        lib.fused_xc_tc_v_chunk.restype = i
         lib.xc_functional_eval.argtypes = [i, i] + [p] * 6
         lib.xc_functional_eval.restype = i
         _LIB = lib
@@ -187,6 +202,13 @@ def _ptr(t):
 
 def _stream():
     return torch.cuda.current_stream().cuda_stream
+
+
+def _on(dev):
+    """dev as the current device for a launch (no switch when it is)."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
 
 
 # ---------------------------------------------------------------------------
@@ -248,11 +270,20 @@ def functional_eval_reference(functional: Functional, rho, sigma=None):
 
 
 def launch_names(functional: Functional, phi_split: bool = False,
-                 ablate: str = "", reduce: str = "f32") -> list[str]:
+                 ablate: str = "", reduce: str = "f32",
+                 base: bool = False) -> list[str]:
     """The LAUNCHES keys one call of this variant counts under; raises on
     a variant _make_kernel cannot build or the port does not take."""
     if reduce not in REDUCTIONS:
         raise ValueError(f"reduce must be one of {REDUCTIONS}, got {reduce!r}")
+    if base:
+        if not functional.needs_grad:
+            raise ValueError("base=True is K1 on the four-kernel pipeline: "
+                             f"the GGA body only, not {functional.name}")
+        if phi_split or ablate or reduce != "f32":
+            raise ValueError("base=True is K1 on the four-kernel pipeline "
+                             "and takes no other variant")
+        return ["K1base"]
     if ablate:
         if ablate not in ABLATIONS:
             raise ValueError(f"ablate must be one of {ABLATIONS}, got "
@@ -302,10 +333,11 @@ def _full_f32_matmul():
 
 def fused_xc_reference(functional: Functional, dm, aot, wt, grads, n: int,
                        *, phi_split: bool = False, ablate: str = "",
-                       reduce: str = "f32"):
+                       reduce: str = "f32", base: bool = False):
     """Plain f32 PyTorch version of K1/K2 and of each variant (see the
-    module note) on packed planes -> (E_xc, V_xc) in dm's dtype."""
-    launch_names(functional, phi_split, ablate, reduce)
+    module note; K1base computes what K1 does) on packed planes -> (E_xc,
+    V_xc) in dm's dtype."""
+    launch_names(functional, phi_split, ablate, reduce, base)
     npad = aot.shape[0]
     with _full_f32_matmul():
         dm_p = _pad_dm(dm, npad)
@@ -369,6 +401,7 @@ def lda_v_tiles(npad: int) -> list[list[tuple[int, int]]]:
             for i in range(0, len(tiles), LDA_V_WARPS)]
 
 
+@functools.lru_cache(maxsize=None)
 def lda_v_chunk(npad: int, gpad: int) -> int:
     """Grid points per K2 V partial: a multiple of 32 (the kernel's
     slab) with tile blocks x chunks near LDA_V_BLOCKS and the partials
@@ -402,15 +435,15 @@ def _check_inputs(functional, dm, aot, wt, grads, n):
 
 
 def _launch(functional: Functional, dm, aot, wt, grads, n: int,
-            phi_split: bool, ablate: str, reduce: str):
-    names = launch_names(functional, phi_split, ablate, reduce)
+            phi_split: bool, ablate: str, reduce: str, base: bool):
+    names = launch_names(functional, phi_split, ablate, reduce, base)
     _check_inputs(functional, dm, aot, wt, grads, n)
+    if names in (["K1"], ["K2"]):
+        return _launch_tc(functional, dm, aot, wt, grads, n, names[0])
     npad, gpad = aot.shape
     dev = aot.device
     f32 = torch.float32
     dm_p = _pad_dm(dm, npad)
-    if names == ["K2"]:
-        return _launch_lda(functional, dm, dm_p, aot, wt, n)
     chunk = v_chunk(npad, gpad)
     ldv = _round_up(npad, TILE)
     phi_bt = torch.empty((npad, gpad), dtype=f32, device=dev)
@@ -421,7 +454,7 @@ def _launch(functional: Functional, dm, aot, wt, grads, n: int,
     gx = gy = gz = None
     if functional.needs_grad:
         gx, gy, gz = grads[0], grads[1], grads[2]
-    with torch.cuda.device(dev):
+    with _on(dev):
         code = _lib().fused_xc(
             functional.kind, _variant_word(phi_split, ablate, reduce), n,
             npad, gpad, chunk, _ptr(dm_p), _ptr(aot), _ptr(gx), _ptr(gy),
@@ -433,38 +466,60 @@ def _launch(functional: Functional, dm, aot, wt, grads, n: int,
     return e_out[0].to(dm.dtype), v_out.to(dm.dtype)
 
 
-def _launch_lda(functional: Functional, dm, dm_p, aot, wt, n: int):
-    """K2: xc_lda_rho_kernel, xc_lda_v_kernel and the reduce."""
+def _launch_tc(functional: Functional, dm, aot, wt, grads, n: int,
+               name: str):
+    """K1/K2: the density's f32 copy, xc_rho(_res)_kernel, xc_gga_v_kernel
+    (K1) or xc_lda_v_kernel (K2), and the reduce, which writes E and V in
+    f64.  As little as possible runs on the host before the first launch."""
     npad, gpad = aot.shape
     dev, f32 = aot.device, torch.float32
-    chunk = lda_v_chunk(npad, gpad)
+    gga = functional.needs_grad
+    if gga:  # the C side knows K1's V schedule and the device's SMs
+        with _on(dev):
+            chunk = _lib().fused_xc_tc_v_chunk(npad, gpad)
+        _check(max(0, -chunk), "fused_xc_tc_v_chunk")
+    else:
+        chunk = lda_v_chunk(npad, gpad)
     ldv = -(-npad // LDA_V_TILE) * LDA_V_TILE
-    s = torch.empty(gpad, dtype=f32, device=dev)
-    e_part = torch.empty(gpad // LDA_COLS, dtype=f32, device=dev)
-    v_part = torch.empty((-(-gpad // chunk), ldv, ldv), dtype=f32, device=dev)
-    v_out = torch.empty((n, n), dtype=f32, device=dev)
-    e_out = torch.empty(1, dtype=f32, device=dev)
-    with torch.cuda.device(dev):
-        code = _lib().fused_xc_lda(
-            functional.kind, n, npad, gpad, chunk, _ptr(dm_p), _ptr(aot),
-            _ptr(wt), _ptr(s), _ptr(e_part), _ptr(v_part), _ptr(v_out),
-            _ptr(e_out), _stream())
-    _check(code, "fused_xc_lda launch")
-    LAUNCHES["K2"] += 1
+    dm64 = dm.to(torch.float64).contiguous()
+    # one scratch allocation: dm_p (npad, npad), s (gpad), u (3, gpad) for
+    # K1, the E partials (gpad / 64), the V partials (nchunk, ldv, ldv);
+    # every piece is a multiple of 4 floats, so each starts 16-byte aligned
+    sizes = (npad * npad, gpad, 3 * gpad if gga else 0, gpad // RHO_COLS,
+             -(-gpad // chunk) * ldv * ldv)
+    scratch = torch.empty(sum(sizes), dtype=f32, device=dev)
+    ptrs, at = [], scratch.data_ptr()
+    for size in sizes:
+        ptrs.append(at if size else None)
+        at += 4 * size
+    dm_p, s, u, e_part, v_part = ptrs
+    v_out = torch.empty((n, n), dtype=torch.float64, device=dev)
+    e_out = torch.empty(1, dtype=torch.float64, device=dev)
+    gx = gy = gz = None
+    if gga:
+        gx, gy, gz = grads[0], grads[1], grads[2]
+    with _on(dev):
+        code = _lib().fused_xc_tc(
+            functional.kind, n, npad, gpad, chunk, _ptr(dm64), dm_p,
+            _ptr(aot), _ptr(gx), _ptr(gy), _ptr(gz), _ptr(wt), s, u,
+            e_part, v_part, _ptr(v_out), _ptr(e_out), _stream())
+    _check(code, "fused_xc_tc launch")
+    LAUNCHES[name] += 1
     return e_out[0].to(dm.dtype), v_out.to(dm.dtype)
 
 
 def fused_xc(functional: Functional, dm, aot, wt, grads, n: int, *,
-             phi_split: bool = False, ablate: str = "", reduce: str = "f32"):
+             phi_split: bool = False, ablate: str = "", reduce: str = "f32",
+             base: bool = False):
     """XC build from packed planes (pack_inputs) -> (E_xc, V_xc) in dm's
-    dtype.  CUDA tensors launch the kernel of the variant (K1/K2 with no
+    dtype.  CUDA tensors launch the kernels of the variant (K1/K2 with no
     keyword); CPU tensors run the plain version."""
     if aot.is_cuda:
         return _launch(functional, dm, aot, wt, grads, n, phi_split, ablate,
-                       reduce)
+                       reduce, base)
     return fused_xc_reference(functional, dm, aot, wt, grads, n,
                               phi_split=phi_split, ablate=ablate,
-                              reduce=reduce)
+                              reduce=reduce, base=base)
 
 
 def xc_step_fused(functional: Functional, dm, ao, weights, ao_grad=None, *,

@@ -3,7 +3,8 @@
 Port of ``quantum_compute_dft_tpu/kohn_sham.py``: basis, one- and
 two-electron integrals, grid and AO planes are built by this package
 (torch f64 on the given device), then the SCF runs.  ERIs are in-core up
-to AUTO_DF_NAO and density-fitted by pivoted Cholesky above it.
+to AUTO_DF_NAO and density-fitted by pivoted Cholesky above it.  The entry
+points run on the GPU unless the caller passes device="cpu".
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import dataclasses
 import time
 
 import numpy as np
+import torch
 
 from quantum_compute_dft_tpu_torch.basis import build_basis
 from quantum_compute_dft_tpu_torch.basis.basis_set import sad_occupations
@@ -47,6 +49,17 @@ class KSSetup:
     df_time: float = 0.0
 
 
+def _device(device) -> torch.device:
+    """The device to run on; the default, cuda, needs a GPU (the CPU runs
+    only when asked for, as the CLI's --device cpu)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r} (the default is 'cuda') needs a CUDA "
+            "GPU; pass device='cpu' to run on the CPU")
+    return dev
+
+
 def _functional(functional: str | Functional) -> Functional:
     if isinstance(functional, Functional):
         return functional
@@ -61,7 +74,7 @@ def prepare(
     prune: bool = True,
     density_fit: bool | None = None,
     df_aux: str = "parity",
-    device="cpu",
+    device="cuda",
 ) -> KSSetup:
     """Basis, integrals, grid and AO planes on `device`.
 
@@ -70,6 +83,7 @@ def prepare(
     error <= 1e-7 by construction).  df_aux='parity' (the Cholesky factor)
     is the only factorization ported; the RI auxiliary tiers 'tight' and
     'fast' raise NotImplementedError."""
+    device = _device(device)
     t0 = time.time()
     fn = _functional(functional)
     basis = build_basis(mol)
@@ -108,9 +122,10 @@ def prepare(
 
 def setup_from_arrays(hcore, s, eri, ao, ao_grad, weights, e_nuc, nocc,
                       nopen, sad_occ, functional: str | Functional,
-                      device="cpu") -> KSSetup:
+                      device="cuda") -> KSSetup:
     """A setup from precomputed numpy arrays (e.g. the JAX package's
     KSSetup arrays), so the SCF can be compared apart from the setup."""
+    device = _device(device)
     t0 = time.time()
     fn = _functional(functional)
     sys = make_system(hcore, s, eri, ao, weights,
@@ -129,7 +144,7 @@ def run(
     callback=None,
     xc_impl: str = "fast",
     density_fit: bool | None = None,
-    device="cpu",
+    device="cuda",
     **kwargs,
 ) -> SCFResult:
     setup = prepare(mol, functional, grid_level=grid_level,

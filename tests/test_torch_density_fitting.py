@@ -119,7 +119,7 @@ def test_df_scf_matches_jax_incore():
                                density_fit=False)
     ref = jax_scf_host(js.sys, js.functional)
     setup = kohn_sham.prepare(from_xyz_file(H2O), "B3LYP", grid_level=1,
-                              density_fit=True)
+                              density_fit=True, device="cpu")
     s = setup.sys
     assert s.eri is None and s.df_bq.dtype == torch.float64
     assert s.df_bq32.dtype == torch.float32 and s.df_l is not None
@@ -132,7 +132,7 @@ def test_df_scf_matches_jax_incore():
 def test_ri_aux_tiers_not_ported(df_aux):
     with pytest.raises(NotImplementedError, match="RI auxiliary"):
         kohn_sham.prepare(from_xyz_file(H2O), "LDA", grid_level=1,
-                          density_fit=True, df_aux=df_aux)
+                          density_fit=True, df_aux=df_aux, device="cpu")
 
 
 def test_cli_density_fit_on_cpu():

@@ -1,10 +1,11 @@
-"""The port's CUDA kernels on the card: K1/K2, K3 (phi_split) and the K1
-variants (ablations, split2 row sums) against their plain PyTorch
-versions, determinism and launch counting, in-core (H2O) and above npad 64
-(Decane npad 72, DHA npad 152); K2 (the LDA body on TF32 tensor cores)
-also against the f64 engine (relative dE and max dV 5e-5, the Pallas
-contract) at every shape from H2O to npad 384.  Imports no JAX, so it also
-runs where JAX is absent:
+"""The port's CUDA kernels on the card: K1/K2, K1base (K1 on the
+four-kernel pipeline), K3 (phi_split) and the variants (ablations, split2
+row sums) against their plain PyTorch versions, determinism and launch
+counting, in-core (H2O) and above npad 64 (Decane npad 72, DHA npad 152);
+K1 and K2 (the GGA and LDA bodies on TF32 tensor cores) also against the
+f64 engine (relative dE and max dV 5e-5, the Pallas contract) at every
+shape from H2O to npad 384.  Imports no JAX, so it also runs where JAX is
+absent:
 
     python -m pytest --noconftest -q tests/test_torch_gpu.py
 
@@ -51,6 +52,7 @@ def _check_kernel(fn, dm, aot, wt, grads, n, **variant):
     names = fused_xc.launch_names(fn, **variant)
     before = {k: fused_xc.LAUNCHES[k] for k in names}
     e_k, v_k = fused_xc.fused_xc(fn, dm, aot, wt, grads, n, **variant)
+    torch.cuda.synchronize()  # a fault shows at the kernel that made it
     e_k2, v_k2 = fused_xc.fused_xc(fn, dm, aot, wt, grads, n, **variant)
     e_p, v_p = fused_xc.fused_xc_reference(fn, dm, aot, wt, grads, n,
                                            **variant)
@@ -75,6 +77,7 @@ VARIANT_CASES = (
     [(f, {"phi_split": True}) for f in ("LDA", "B3LYP")]
     + [(f, {"reduce": "split2"}) for f in ("LDA", "B3LYP")]
     + [("PBE", {"phi_split": True, "reduce": "split2"})]
+    + [(f, {"base": True}) for f in ("PBE", "B3LYP")]
     + [("B3LYP", {"ablate": a}) for a in fused_xc.ABLATIONS])
 
 
@@ -155,27 +158,31 @@ def test_cuda_variant_matches_plain_version(molecule, name, variant):
     _check_kernel(fn, dm, aot, wt, grads, n, **variant)
 
 
-def _k2_planes(shape, dev):
-    """(dm, ao, w) f64 on the card for one K2 shape: H2O grid 1 at a
-    perturbed guess, else a perturbed SAD density on grid-1 points (Decane's
-    first 65 AOs on every 4th point: npad 72, ragged; Decane and DHA on every
-    4th point: npad 72, 152; the first 65,536 points of C33H56N7O17P3S:
-    npad 384)."""
+def _tc_planes(shape, fn, dev):
+    """(dm, ao, w, grad) f64 on the card for one K1/K2 shape (grad None for
+    K2): H2O grid 1 at a perturbed guess, else a perturbed SAD density on
+    grid-1 points (Decane's first 65 AOs on every 4th point: npad 72,
+    ragged; Decane and DHA on every 4th point: npad 72, 152; the first
+    65,536 points of C33H56N7O17P3S: npad 384)."""
     if shape == "H2O":
         setup = kohn_sham.prepare(
-            from_xyz_file(os.path.join(ROOT, "molecules", "H2O.xyz")), "LDA",
+            from_xyz_file(os.path.join(ROOT, "molecules", "H2O.xyz")), fn,
             grid_level=1, device=dev)
         n = setup.nao
         pert = np.random.default_rng(13).standard_normal((n, n)) * 1e-2
         dm = initial_guess(setup.sys) + torch.tensor(pert + pert.T, device=dev)
-        return dm, setup.sys.ao, setup.sys.weights
+        return dm, setup.sys.ao, setup.sys.weights, setup.sys.ao_grad
     molecule = {"Decane65": "Decane", "npad384": "C33H56N7O17P3S"}.get(
         shape, shape)
     mol = from_xyz_file(os.path.join(ROOT, "molecules", molecule + ".xyz"))
     basis = build_basis(mol)
     grid = build_grid(mol, level=1, device=dev)
     pts = slice(0, 65536) if shape == "npad384" else slice(None, None, 4)
-    ao = eval_ao(basis, grid.coords[pts], deriv=0, device=dev)
+    grad = None
+    if fn.needs_grad:
+        ao, grad = eval_ao(basis, grid.coords[pts], deriv=1, device=dev)
+    else:
+        ao = eval_ao(basis, grid.coords[pts], deriv=0, device=dev)
     w = torch.tensor(grid.weights[pts], device=dev)
     n = basis.nao
     pert = np.random.default_rng(19).standard_normal((n, n)) * 1e-2
@@ -183,22 +190,52 @@ def _k2_planes(shape, dev):
                       + pert + pert.T, device=dev)
     if shape == "Decane65":
         dm, ao = dm[:65, :65], ao[:, :65].contiguous()
-    return dm, ao, w
+        if grad is not None:
+            grad = grad[:, :, :65].contiguous()
+    return dm, ao, w, grad
 
 
-@pytest.mark.parametrize("shape,npad", [("H2O", 8), ("Decane65", 72),
-                                        ("Decane", 72), ("DHA", 152),
-                                        ("npad384", 384)])
-@pytest.mark.parametrize("name", ["LDA", "HF"])
-def test_cuda_k2_matches_plain_and_f64(shape, npad, name):
+TC_SHAPES = [("H2O", 8), ("Decane65", 72), ("Decane", 72), ("DHA", 152),
+             ("npad384", 384)]
+
+
+def _check_tc(shape, npad, name):
+    """K1 or K2 on the tensor cores at one shape: against its plain
+    version, bitwise over two calls, launch count, and the f64 engine."""
     dev = _cuda()
     fn = FUNCTIONALS[name]
-    dm, ao, w = _k2_planes(shape, dev)
+    dm, ao, w, grad = _tc_planes(shape, fn, dev)
     n = dm.shape[0]
-    aot, wt, _ = fused_xc.pack_inputs(ao, w)
+    aot, wt, grads = fused_xc.pack_inputs(ao, w, grad,
+                                          needs_grad=fn.needs_grad)
     assert aot.shape[0] == npad
-    _check_kernel(fn, dm, aot, wt, None, n)
-    e_k, v_k = fused_xc.fused_xc(fn, dm, aot, wt, None, n)
-    e_64, v_64 = xc_step(fn, dm, ao, w, None)
+    _check_kernel(fn, dm, aot, wt, grads, n)
+    e_k, v_k = fused_xc.fused_xc(fn, dm, aot, wt, grads, n)
+    e_64, v_64 = xc_step(fn, dm, ao, w, grad)
     assert abs(float(e_k) - float(e_64)) <= 5e-5 * max(abs(float(e_64)), 1.0)
     assert float(torch.abs(v_k - v_64).max()) < 5e-5
+
+
+@pytest.mark.parametrize("shape,npad", TC_SHAPES)
+@pytest.mark.parametrize("name", ["LDA", "HF"])
+def test_cuda_k2_matches_plain_and_f64(shape, npad, name):
+    _check_tc(shape, npad, name)
+
+
+@pytest.mark.parametrize("shape,npad", TC_SHAPES)
+@pytest.mark.parametrize("name", ["GGA", "B3LYP"])
+def test_cuda_k1_matches_plain_and_f64(shape, npad, name):
+    _check_tc(shape, npad, name)
+
+
+@pytest.mark.parametrize("npad", [8, 40, 72, 152, 160, 168, 384])
+@pytest.mark.parametrize("gpad", [1024, 65536, 138240, 634880, 1150976])
+def test_cuda_k1_v_chunk_covers_the_grid_with_bounded_partials(npad, gpad):
+    """K1's V chunk from the C side: whole 16-point slabs, every slab in
+    one partial, the partials within 32 MB."""
+    _cuda()
+    chunk = fused_xc._lib().fused_xc_tc_v_chunk(npad, gpad)
+    nchunk = -(-gpad // chunk)
+    ldv = -(-npad // fused_xc.LDA_V_TILE) * fused_xc.LDA_V_TILE
+    assert chunk > 0 and chunk % 16 == 0 and (nchunk - 1) * chunk < gpad
+    assert nchunk * ldv * ldv <= fused_xc.LDA_V_PART_FLOATS

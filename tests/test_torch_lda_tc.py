@@ -1,6 +1,6 @@
 """K2's arithmetic (the LDA body on TF32 tensor cores, csrc/fused_xc.cu's
-xc_lda_rho_kernel and xc_lda_v_kernel) emulated in torch on the CPU, and
-its V tile schedule.
+xc_rho_res_kernel / xc_rho_kernel and xc_lda_v_kernel) emulated in torch on
+the CPU, and its V tile schedule.
 
 The emulation does what the kernels do, in f32: each operand x splits into
 hi = tf32(x) rounded to nearest with ties away (the kernels' bit rounding,

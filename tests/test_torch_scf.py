@@ -59,7 +59,7 @@ def test_scf_from_jax_setup_matches_jax_scf():
     setup = kohn_sham.setup_from_arrays(
         np.asarray(s.hcore), np.asarray(s.s), np.asarray(s.eri),
         np.asarray(s.ao), None, np.asarray(s.weights), s.e_nuc, s.nocc,
-        s.nopen, sad, "LDA")
+        s.nopen, sad, "LDA", device="cpu")
     res = scf_host(setup.sys, setup.functional)
     assert ref.converged and res.converged
     assert abs(res.e_tot - ref.e_tot) < 1e-9
@@ -70,21 +70,23 @@ def test_scf_from_jax_setup_matches_jax_scf():
 def test_golden_rows(molecule, functional):
     row, tol = _golden(molecule, functional)
     setup = kohn_sham.prepare(from_xyz_file(_xyz(molecule)), functional,
-                              grid_level=row["grid_level"])
+                              grid_level=row["grid_level"], device="cpu")
     res = scf_host(setup.sys, setup.functional)
     assert res.converged
     assert abs(res.e_tot - row["e_tot"]) < tol
 
 
 def test_hf_literature():
-    setup = kohn_sham.prepare(from_xyz_file(_xyz("H2O")), "HF", grid_level=1)
+    setup = kohn_sham.prepare(from_xyz_file(_xyz("H2O")), "HF", grid_level=1,
+                              device="cpu")
     res = scf_host(setup.sys, setup.functional)
     assert res.converged
     assert abs(res.e_tot - (-74.965901)) < 1e-5
 
 
 def test_fast_schedule_matches_f64():
-    setup = kohn_sham.prepare(from_xyz_file(_xyz("H2O")), "GGA", grid_level=1)
+    setup = kohn_sham.prepare(from_xyz_file(_xyz("H2O")), "GGA", grid_level=1,
+                              device="cpu")
     ref = scf_host(setup.sys, setup.functional)
     res = scf_host(setup.sys, setup.functional, xc_impl="fast")
     assert ref.converged and res.converged
@@ -98,7 +100,7 @@ def test_auto_rule_selects_df_above_limit(monkeypatch, limit, df):
     # H2O has nao 7: density-fitted above the limit, in-core at it
     monkeypatch.setattr(kohn_sham, "AUTO_DF_NAO", limit)
     setup = kohn_sham.prepare(from_xyz_file(_xyz("H2O")), "LDA",
-                              grid_level=1)
+                              grid_level=1, device="cpu")
     s = setup.sys
     assert (s.eri is None) == df and (s.df_bq is not None) == df
     assert s.df_l is None and s.df_bq32 is None   # LDA builds no K
@@ -122,3 +124,19 @@ def test_diis_matches_jax():
         jst, jout = jax_diis_update(jst, *(jnp.asarray(m)
                                            for m in (f, d, s, x)))
         assert np.abs(out.numpy() - np.asarray(jout)).max() < 1e-12
+
+
+@pytest.mark.parametrize("entry", ["prepare", "run", "setup_from_arrays"])
+def test_entry_points_default_to_the_gpu(monkeypatch, entry):
+    """Without a GPU the entry points refuse to run unless device="cpu" is
+    passed: the CPU is never taken silently."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mol = from_xyz_file(_xyz("H2O"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        if entry == "setup_from_arrays":
+            z = np.zeros((2, 2))
+            kohn_sham.setup_from_arrays(z, z, None, np.zeros((4, 2)), None,
+                                        np.zeros(4), 0.0, 1, 0,
+                                        np.ones(2), "LDA")
+        else:
+            getattr(kohn_sham, entry)(mol, "LDA", grid_level=1)

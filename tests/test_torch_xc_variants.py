@@ -187,6 +187,16 @@ def test_ablation_takes_no_other_variant(kw):
         fused_xc.launch_names(FUNCTIONALS["GGA"], **kw)
 
 
+@pytest.mark.parametrize("name,kw,match", [
+    ("LDA", {}, "GGA body only"),
+    ("GGA", {"ablate": "nov"}, "no other variant"),
+    ("GGA", {"phi_split": True}, "no other variant"),
+])
+def test_base_is_k1_on_the_four_kernel_pipeline_only(name, kw, match):
+    with pytest.raises(ValueError, match=match):
+        fused_xc.launch_names(FUNCTIONALS[name], base=True, **kw)
+
+
 def test_launch_names():
     gga, lda = FUNCTIONALS["GGA"], FUNCTIONALS["LDA"]
     assert fused_xc.launch_names(gga) == ["K1"]
@@ -196,7 +206,8 @@ def test_launch_names():
     assert fused_xc.launch_names(gga, phi_split=True,
                                  reduce="split2") == ["K3", "split2"]
     assert fused_xc.launch_names(gga, ablate="phi3") == ["phi3"]
-    assert set(fused_xc.LAUNCHES) == {"K1", "K2", "K3", "split2",
+    assert fused_xc.launch_names(gga, base=True) == ["K1base"]
+    assert set(fused_xc.LAUNCHES) == {"K1", "K2", "K1base", "K3", "split2",
                                       *fused_xc.ABLATIONS}
     for name, kw in fused_xc.VARIANTS.items():
         assert fused_xc.launch_names(gga, **kw) == [name]
@@ -215,5 +226,5 @@ def test_sweep_tool_prints_every_variant_on_cpu():
         assert (r["nao"], r["npad"], r["grid_level"]) == (7, 8, 1)
         assert r["ms"] is None and r["gpu"] is None  # no time on the CPU
     by = {r["variant"]: r["e_xc"] for r in rows}
-    assert by["nov"] == by["K1"] and by["phi3"] == by["K3"]
+    assert by["nov"] == by["K1"] == by["K1base"] and by["phi3"] == by["K3"]
     assert by["K3"] != by["K1"]

@@ -13,11 +13,14 @@ npad, gpad, v_chunk, variant, calls (kernel calls made for the variant),
 ms, ms_min, ms_max, plain_ms, plain_min, plain_max, e_xc, e_xc_plain, gpu
 and power_limit (nvidia-smi).
 
-Variants (engine/fused_xc.py's VARIANTS): K1 (the SCF's kernel), K3
-(phi_split=True), the ablations nophi, phi3, noprod, nofunc and nov (each
-changes one phase of K1, so results are wrong by design; their times
-attribute K1's time to its phases) and split2 (reduce="split2", the TPU
-kernel's 2-pass row sums).  The JAX tool's DFT_PALLAS_TILE and
+Variants (engine/fused_xc.py's VARIANTS): K1 (the SCF's kernel, on the
+tensor cores), K1base (base=True: K1 on the four-kernel pipeline of FP32
+products with a phi_D/B^T plane), K3 (phi_split=True), the ablations nophi,
+phi3, noprod, nofunc and nov and split2 (reduce="split2", the TPU kernel's
+2-pass row sums).  The ablations and split2 each change one phase of the
+four-kernel pipeline (the ablations' results are wrong by design), so their
+times are read against K1base's row: K1base minus an ablation is the time
+of the phase it removes.  K1's row is the redesigned kernel beside them.  The JAX tool's DFT_PALLAS_TILE and
 DFT_PALLAS_NPAD_GRAN are TPU layout controls with no counterpart in the
 tiled CUDA kernels; the line gives the port's V chunk instead.
 
