@@ -47,6 +47,31 @@ raises and the script exits non-zero without the final line):
         GGA (K1) and LDA (K2) CaCO3 at --smear-kt 0.2, fast against f64
         within 1e-7 Eh, each kernel launched at least once per CaCO3
         kernel-phase cycle
+     d. the RI auxiliary tiers: B3LYP Decane with --df-aux tight and
+        --df-aux fast through the CLI, each within 1e-7 Eh of the JAX
+        package's CPU energy for the same tier and grid
+        (docs/ri_reference_cpu.json, tools/ri_reference.py); the card's
+        RI tensors against the CPU's (H2O 'tight', H2Se 'fast') within
+        1e-11 of their largest magnitude; DHA B3LYP on the 'fast' tier, one
+        kohn_sham.prepare for both scf_host schedules, fast within 1e-7 Eh
+        of f64, and on the 'tight' tier (fast schedule), each with its RI
+        build seconds and peak device memory beside 4b's Cholesky seconds
+        and its distance from the Cholesky row's energy (the tier's error,
+        printed, not bounded); K1 launched at least once per kernel-phase
+        cycle of these runs; and a checkpoint round trip:
+        H2O LDA through the CLI with --checkpoint twice (f64 schedule), the
+        second run resuming from the first's density in no more cycles,
+        within 1e-8 Eh
+     e. the north star, C33H56N7O17P3S B3LYP at grid level 1 (nao 377,
+        540,054 points) on a pivoted-Cholesky factor at tol 1e-5 handed to
+        kohn_sham.prepare(_df_override=...) by tools/torch_northstar.py's
+        setup and scf, the f64 schedule, within 1e-6 Eh of the JAX
+        package's v5e energy (its rank and grid size printed beside the JAX
+        package's); then K1 and its plain version timed at its converged
+        density on the whole grid (npad 384), after it is held against its
+        plain version and the f64 engine there.  The fast schedule's kernel
+        phase stalls there (tools/torch_northstar.py, PERF.md): it is not
+        run here
   5. the variant sweep (tools/torch_xc_sweep.py, in process) at DHA grid 3
      with the launch counts set to 0 just before it: one JSON line per
      variant, one launch of each variant's kernel per kernel call it made,
@@ -64,12 +89,12 @@ from __future__ import annotations
 
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+TOOLS = os.path.join(HERE, "tools")
 
 # relative |dE| and max |dV|: kernel vs its plain f32 version (both f32,
 # other summation order), and kernel vs the f64 engine (the Pallas
@@ -96,16 +121,25 @@ DECANE_E = -389.66540042
 DHA_E = -995.41205421
 DF_TOL = 1e-6
 FAST_VS_F64_TOL = 1e-7       # tests/test_torch_scf.py
+# phase 4d: the RI tiers against the JAX package's CPU energies, and the
+# checkpoint round trip (tests/test_aux.py's resume bar)
+RI_REF = os.path.join(HERE, "docs", "ri_reference_cpu.json")
+RI_TOL = 1e-7
+RESUME_TOL = 1e-8
+# the card's j3c and v2c against the same built on the CPU, of their
+# largest magnitude (tests/test_torch_ri.py's bar against the JAX package)
+RI_CPU_TOL = 1e-11
+# (molecule, tier) of that check: g aux functions on O, and the Hermite sum
+# to 8 (d shells on Se with g aux functions)
+RI_CPU_CHECK = (("H2O", "tight"), ("H2Se", "fast"))
+# phase 4e: the north star within 1e-6 Eh of the JAX package's L1 run on
+# one v5e (tools/torch_northstar.py holds its molecule, energy, grid size
+# and factor rank)
+NORTHSTAR_TOL = 1e-6
 GOLDEN_TOL = 1e-7            # tests/golden_energies.json's tolerance
 # phase 4c's electronic temperature (Eh): that of the golden table's six
 # smeared rows (tools/gen_golden.py's ladder)
 FON_KT = 0.2
-# the card's peaks for the bounds (H100 SXM data sheet, 700 W): HBM bytes/s
-# and the TF32 tensor-core rate, at which the product FLOPs are counted;
-# the FP32 pipe's rate, printed beside it
-HBM_BYTES_S = 3.35e12
-TF32_FLOP_S = 495e12
-FP32_FLOP_S = 67e12
 # phase 3's density-fitting shapes: (molecule, grid level, first points)
 DF_SHAPES = (("Decane", 3, None), ("DHA", 3, None),
              ("C33H56N7O17P3S", 1, 65536))
@@ -165,23 +199,6 @@ def phase_build():
     _phase("2 build", t0, f"built {os.path.relpath(path, HERE)}")
 
 
-def _cuda_ms(fn, reps=25, warm=3):
-    import torch
-
-    for _ in range(warm):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 def _compare(label, kid, case, rec, variant=None, tol_plain=(TOL_PLAIN,
              TOL_PLAIN), tol_f64=(TOL_F64, TOL_F64), v_scaled=False):
     """One kernel call of `variant` against its plain version (and, with
@@ -231,39 +248,20 @@ def _compare(label, kid, case, rec, variant=None, tol_plain=(TOL_PLAIN,
     return v_k
 
 
-def _bound(kid, case):
-    """(ms, "bytes" | "operations"): the least time the card could take for
-    one call on this case's data, counted on the nao AOs and the grid's
-    points (the wrapper's padding to npad rows and gpad points is not
-    work the function needs).  Bytes: each input read once (the f64 D, the
-    f32 AO plane and for the GGA body its three gradient planes, the f32
-    weights) and each output written once (the f64 V and E), at
-    HBM_BYTES_S.  Operations: the products the variant computes, at the
-    TF32 rate: phi_D = D AO, 2 nao^2 points FLOPs; V, symmetric, a syr2k
-    (AO B^T + B AO^T) of 2 nao^2 points FLOPs for the GGA body and a syrk
-    (AO diag(s) AO^T) of nao (nao + 1) points for the LDA body; nophi drops
-    phi_D, nov drops V.  -> (ms, what sets it, the same FLOPs' ms on the
-    FP32 pipe)."""
-    fn, n, npts = case[1], case[6], case[7].shape[0]
-    planes = 4 if fn.needs_grad else 1
-    nbytes = 8 * (2 * n * n + 1) + 4 * (planes * n + 1) * npts
-    flops = 0.0 if kid == "nophi" else 2.0 * n * n * npts
-    if kid != "nov":
-        flops += (2.0 * n * n if fn.needs_grad else n * (n + 1.0)) * npts
-    t_b = nbytes / HBM_BYTES_S
-    t_o = flops / TF32_FLOP_S
-    return (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations",
-            1e3 * t_b, 1e3 * t_o, 1e3 * flops / FP32_FLOP_S)
-
-
 def _time(kid, label, case, rec, key, variant=None):
+    """Kernel and plain ms (median of 25, CUDA events) beside the bound
+    (tools/torch_kernel_timing.py: on the nao AOs and the grid's points of
+    this case), recorded under key + ms, plain_ms, bound_ms, bound_by."""
+    import torch_kernel_timing as kt
+
     from quantum_compute_dft_tpu_torch.engine import fused_xc
 
     variant = variant or {}
     args = case[1:7]
-    ms = _cuda_ms(lambda: fused_xc.fused_xc(*args, **variant))
-    plain = _cuda_ms(lambda: fused_xc.fused_xc_reference(*args, **variant))
-    bound, by, t_b, t_o, t_fp32 = _bound(kid, case)
+    ms = kt.cuda_ms(lambda: fused_xc.fused_xc(*args, **variant))
+    plain = kt.cuda_ms(lambda: fused_xc.fused_xc_reference(*args, **variant))
+    bound, by, t_b, t_o, t_fp32 = kt.xc_bound(kid, case[1].needs_grad,
+                                              case[6], case[7].shape[0])
     rec[kid].update({key + "ms": ms, key + "plain_ms": plain,
                      key + "bound_ms": bound, key + "bound_by": by})
     print(f"  {kid} {label} time: kernel {ms:.4f} ms, plain {plain:.4f} ms "
@@ -315,12 +313,14 @@ def _profile(kid, case, rec, calls=10):
 def _products_matmul(case, rec):
     """For context: K1's two products alone as full-f32 torch.matmul
     (phi_D = D AO, and V's AO B^T at its shapes) on this case's planes."""
+    import torch_kernel_timing as kt
+
     from quantum_compute_dft_tpu_torch.engine import fused_xc
 
     dm, aot = case[2], case[3]
     dm_p = fused_xc._pad_dm(dm, aot.shape[0])
     with fused_xc._full_f32_matmul():
-        ms = _cuda_ms(lambda: (dm_p @ aot, aot @ aot.T))
+        ms = kt.cuda_ms(lambda: (dm_p @ aot, aot @ aot.T))
     rec["K1"]["dha_products_matmul_ms"] = ms
     print(f"  K1 {case[0]}: the two products alone as full-f32 torch.matmul "
           f"{ms:.4f} ms (median of 25)", flush=True)
@@ -513,9 +513,7 @@ def _cli(fname, mol, dev, e_ref, *args):
         "--grid-level", "3", "--device", dev.type, *args])
     torch.cuda.synchronize()
     dref = "n/a" if e_ref is None else f"{res.e_tot - e_ref:+.2e}"
-    jk = "in-core" if setup.sys.eri is not None else (
-        f"DF rank {setup.sys.df_bq.shape[0]}, Cholesky "
-        f"{setup.df_time:.2f} s")
+    jk = cli.jk_label(setup)
     print(f"  {fname} {mol} {' '.join(args) or '(CLI defaults)'}: converged="
           f"{res.converged} cycles={res.n_iter} (kernel "
           f"{res.fast_cycles}, f64 verify {res.verify_cycles}) kT="
@@ -527,18 +525,22 @@ def _cli(fname, mol, dev, e_ref, *args):
 
 def _run_path(name, runs, dev):
     """CLI runs in process with the launch counts set to 0 just before and
-    read just after; returns the counts.  runs: (functional, molecule,
-    xc_impl, reference energy, tolerance); the reference "previous" is the
-    energy of the run before, None checks convergence only."""
+    read just after; returns the counts and the Cholesky seconds per
+    molecule.  runs: (functional, molecule, xc_impl, reference energy,
+    tolerance); the reference "previous" is the energy of the run before,
+    None checks convergence only."""
     from quantum_compute_dft_tpu_torch.engine import fused_xc
 
     t0 = time.time()
     _reset_launches()
     fast_cycles = {"K1": 0, "K2": 0}
+    cholesky_s = {}
     e_prev = None
     for fname, mol, xc_impl, e_ref, tol in runs:
         e_ref = e_prev if e_ref == "previous" else e_ref
         setup, res = _cli(fname, mol, dev, e_ref, "--xc-impl", xc_impl)
+        if setup.df_aux == "parity":
+            cholesky_s[mol] = setup.df_time
         if xc_impl == "fast":
             fast_cycles["K1" if setup.functional.needs_grad else "K2"] += \
                 res.fast_cycles
@@ -555,22 +557,22 @@ def _run_path(name, runs, dev):
                                  "cycles")
     _phase(name, t0, f"launches {launches}, kernel-phase cycles "
            f"{fast_cycles}")
-    return launches
+    return launches, cholesky_s
 
 
 def phase_main(dev):
     """The port's CLI entry in process on both paths; returns the launch
-    counts of each."""
-    incore = _run_path("4a main path, in-core", (
+    counts of each and the density-fitted path's Cholesky seconds."""
+    incore, _ = _run_path("4a main path, in-core", (
         ("GGA", "Benzene", "fast", BENZENE_E, BENZENE_TOL),
         ("LDA", "H2O", "fast") + _golden("H2O", "LDA"),
         ("B3LYP", "H2Se", "fast") + _golden("H2Se", "B3LYP")), dev)
-    df = _run_path("4b main path, density fitting", (
+    df, cholesky_s = _run_path("4b main path, density fitting", (
         ("B3LYP", "Decane", "fast", DECANE_E, DF_TOL),
         ("B3LYP", "DHA", "fast", DHA_E, DF_TOL),
         ("LDA", "Decane", "f64", None, None),
         ("LDA", "Decane", "fast", "previous", FAST_VS_F64_TOL)), dev)
-    return incore, df
+    return incore, df, cholesky_s
 
 
 def phase_fon(dev):
@@ -581,7 +583,6 @@ def phase_fon(dev):
     (K1) and LDA (K2) at --smear-kt FON_KT, fast against f64."""
     from quantum_compute_dft_tpu_torch.engine import fused_xc
 
-    sys.path.insert(0, os.path.join(HERE, "tools"))
     import torch_run_all_molecules as tool
 
     t0 = time.time()
@@ -638,6 +639,166 @@ def phase_fon(dev):
     return launches
 
 
+def phase_ri(dev, cholesky_s):
+    """4d: the RI tiers and the checkpoint round trip, with the launch
+    counts set to 0 just before and read just after; returns them.
+    cholesky_s: 4b's Cholesky seconds per molecule, printed beside the RI
+    build's."""
+    import contextlib
+    import io
+
+    import torch
+
+    from quantum_compute_dft_tpu_torch import cli, kohn_sham
+    from quantum_compute_dft_tpu_torch.basis import build_basis
+    from quantum_compute_dft_tpu_torch.engine import fused_xc
+    from quantum_compute_dft_tpu_torch.integrals.density_fitting import (
+        df_tensors,
+    )
+    from quantum_compute_dft_tpu_torch.mol import from_xyz_file
+    from quantum_compute_dft_tpu_torch.scf.driver import scf_host
+
+    with open(RI_REF) as f:
+        ref = {(r["molecule"], r["functional"], r["grid_level"], r["tier"]): r
+               for r in json.load(f)["rows"]}
+    t0 = time.time()
+    _reset_launches()
+    fast_cycles = 0
+    for tier in ("tight", "fast"):
+        row = ref[("Decane", "B3LYP", 3, tier)]
+        setup, res = _cli("B3LYP", "Decane", dev, row["e_tot"], "--df-aux",
+                          tier)
+        fast_cycles += res.fast_cycles
+        print(f"    RI build {setup.ri_time:.2f} s {json.dumps(setup.ri_split)}"
+              f"; the JAX package's robust-fit J energy "
+              f"{row['e_tot_robust_fit']:.10f} ({res.e_tot - row['e_tot_robust_fit']:+.2e})",
+              flush=True)
+        if not res.converged or abs(res.e_tot - row["e_tot"]) >= RI_TOL:
+            raise AssertionError(f"Decane B3LYP {tier}: E={res.e_tot} vs the "
+                                 f"JAX package's {row['e_tot']} (tol {RI_TOL})")
+
+    for name, tier in RI_CPU_CHECK:
+        mol = from_xyz_file(os.path.join(HERE, "molecules", name + ".xyz"))
+        basis = build_basis(mol)
+        ref = df_tensors(basis, mol, aux_level=tier)
+        got = df_tensors(basis, mol, aux_level=tier, device=dev)
+        rel = [float((g.cpu() - r).abs().max() / r.abs().max())
+               for r, g in zip(ref, got)]
+        print(f"  {name} '{tier}' RI tensors on the card against the CPU: "
+              f"j3c {rel[0]:.2e}, v2c {rel[1]:.2e} of their largest "
+              "magnitude", flush=True)
+        if not max(rel) < RI_CPU_TOL:
+            raise AssertionError(f"{name} {tier}: the card's RI tensors "
+                                 f"depart from the CPU's by {max(rel)}")
+        del ref, got
+
+    mol = from_xyz_file(os.path.join(HERE, "molecules", "DHA.xyz"))
+    e = {}
+    for tier, schedules in (("fast", ("fast", "f64")), ("tight", ("fast",))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        setup = kohn_sham.prepare(mol, "B3LYP", grid_level=3,
+                                  density_fit=True, df_aux=tier, device=dev)
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        for xc_impl in schedules:
+            t1 = time.time()
+            res = scf_host(setup.sys, setup.functional, xc_impl=xc_impl)
+            torch.cuda.synchronize()
+            if not res.converged:
+                raise AssertionError(f"DHA B3LYP {tier} tier, {xc_impl}: did "
+                                     "not converge")
+            e[tier, xc_impl] = res.e_tot
+            if xc_impl == "fast":
+                fast_cycles += res.fast_cycles
+            print(f"  B3LYP DHA RI {tier} tier --xc-impl {xc_impl}: cycles="
+                  f"{res.n_iter} (kernel {res.fast_cycles}, f64 verify "
+                  f"{res.verify_cycles}) E={res.e_tot:.10f} dE_cholesky_row="
+                  f"{res.e_tot - DHA_E:+.2e} SCF {time.time() - t1:.3f} s",
+                  flush=True)
+        print(f"  DHA {tier} setup {setup.build_time:.2f} s: RI build (naux "
+              f"{setup.ri_split['naux']}) {setup.ri_time:.2f} s "
+              f"{json.dumps(setup.ri_split)}, peak device memory {peak:.2f} "
+              f"GB, against 4b's Cholesky {cholesky_s['DHA']:.2f} s",
+              flush=True)
+        del setup
+    de = e["fast", "fast"] - e["fast", "f64"]
+    print(f"  DHA 'fast' tier: fast - f64 {de:+.2e}", flush=True)
+    if abs(de) >= FAST_VS_F64_TOL:
+        raise AssertionError(f"DHA B3LYP fast tier: fast {e['fast', 'fast']} "
+                             f"vs f64 {e['fast', 'f64']}")
+    launches = dict(fused_xc.LAUNCHES)
+    if launches["K1"] < max(1, fast_cycles):
+        raise AssertionError(f"4d: K1 {launches['K1']} launches for "
+                             f"{fast_cycles} kernel-phase cycles")
+
+    ck = os.path.join(HERE, "build", "chip_smoke_checkpoint.npz")
+    os.makedirs(os.path.dirname(ck), exist_ok=True)
+    if os.path.exists(ck):
+        os.remove(ck)
+    runs = []
+    for _ in range(2):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            _, res, _ = cli.run([
+                "LDA", "H2O", "--molecules-dir", os.path.join(HERE, "molecules"),
+                "--grid-level", "3", "--device", dev.type, "--xc-impl", "f64",
+                "--checkpoint", ck])
+        runs.append((res, "Resuming from checkpoint" in out.getvalue()))
+        print(f"  LDA H2O --checkpoint: resumed={runs[-1][1]} converged="
+              f"{res.converged} cycles={res.n_iter} E={res.e_tot:.10f}",
+              flush=True)
+    (r1, resumed1), (r2, resumed2) = runs
+    if (resumed1 or not resumed2 or not (r1.converged and r2.converged)
+            or r2.n_iter > r1.n_iter or abs(r2.e_tot - r1.e_tot) >= RESUME_TOL):
+        raise AssertionError("4d: the checkpoint round trip did not resume")
+    _phase("4d RI tiers and checkpoints", t0, f"Decane tight/fast within "
+           f"{RI_TOL:g} of the JAX package; the card's RI tensors = the "
+           f"CPU's; DHA fast tier fast = f64; "
+           f"launches {launches}, kernel-phase cycles {fast_cycles}; the "
+           f"checkpoint resumed ({r1.n_iter} then {r2.n_iter} cycles)")
+    return launches
+
+
+def phase_northstar(dev, rec):
+    """4e: the north star on the f64 schedule through prepare's external
+    factor hook (tools/torch_northstar.py's setup and scf, the factor built
+    here, not cached), then K1 timed on its whole grid (recorded under
+    northstar_ in K1's record)."""
+    import torch
+    import torch_northstar as ns
+
+    from quantum_compute_dft_tpu_torch.scf.driver import _packed_for
+
+    t0 = time.time()
+    setup, factor = ns.setup(device=dev, cache=False)
+    res, t_scf = ns.scf(setup, "f64")
+    de = res.e_tot - ns.JAX_E
+    rank = factor["cd_rank"]
+    print(f"  B3LYP {ns.MOLECULE} grid {ns.GRID_LEVEL}: nao={setup.nao} "
+          f"ngrid={setup.ngrid} (JAX {ns.JAX_NGRID}) Cholesky tol "
+          f"{ns.CD_TOL:g} rank {rank} (JAX {ns.JAX_CD_RANK}) "
+          f"{factor['cholesky_s']:.2f} s, prepare {setup.build_time:.2f} s "
+          f"{json.dumps(setup.setup_split)}; f64: converged={res.converged} "
+          f"cycles={res.n_iter} E={res.e_tot:.10f} dE_jax={de:+.2e} SCF "
+          f"{t_scf:.3f} s", flush=True)
+    if (setup.ngrid != ns.JAX_NGRID or not res.converged
+            or abs(de) >= NORTHSTAR_TOL):
+        raise AssertionError(f"north star: E={res.e_tot} vs {ns.JAX_E} "
+                             f"(tol {NORTHSTAR_TOL}), ngrid {setup.ngrid}")
+    fn = setup.functional
+    aot, wt, grads = _packed_for(setup.sys, fn.needs_grad)
+    s = setup.sys
+    case = (f"{ns.MOLECULE} grid {ns.GRID_LEVEL}, whole grid", fn, res.dm,
+            aot, wt, grads, setup.nao, s.ao, s.weights, s.ao_grad)
+    _compare(case[0], "K1", case, rec)
+    _time("K1", case[0], case, rec, "northstar_")
+    del setup, s, case, aot, wt, grads
+    torch.cuda.empty_cache()
+    _phase("4e north star", t0, f"f64 schedule within {NORTHSTAR_TOL:g} Eh "
+           f"of the JAX package ({de:+.2e}); rank {rank}, ngrid "
+           f"{ns.JAX_NGRID}")
+
+
 def phase_sweep():
     """The variant sweep's entry point at DHA grid 3, in process, with the
     launch counts set to 0 just before and read just after; returns them."""
@@ -647,7 +808,6 @@ def phase_sweep():
     from quantum_compute_dft_tpu_torch.engine import fused_xc
     from quantum_compute_dft_tpu_torch.xc import FUNCTIONALS
 
-    sys.path.insert(0, os.path.join(HERE, "tools"))
     import torch_xc_sweep
 
     _reset_launches()
@@ -682,8 +842,10 @@ def main() -> int:
     phase_variants(cases, rec)
     del cases
     torch.cuda.empty_cache()
-    incore, df = phase_main(dev)
+    incore, df, cholesky_s = phase_main(dev)
     fon = phase_fon(dev)
+    ri = phase_ri(dev, cholesky_s)
+    phase_northstar(dev, rec)
     sweep = phase_sweep()
 
     kernels = []
@@ -692,7 +854,8 @@ def main() -> int:
                  "source": KERNEL_SRC, "replaces": REPLACES[kid]}
         if kid in ("K1", "K2"):  # the SCF's kernels: the main paths' counts
             entry.update(launches=df[kid], incore_launches=incore[kid],
-                         fon_launches=fon[kid], sweep_launches=sweep[kid])
+                         fon_launches=fon[kid], ri_launches=ri[kid],
+                         sweep_launches=sweep[kid])
         else:
             entry["launches"] = sweep[kid]
         if entry["launches"] < 1:
@@ -712,5 +875,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.path.insert(0, HERE)
+    sys.path[:0] = [HERE, TOOLS]
     sys.exit(main())

@@ -8,6 +8,10 @@ with the energy decomposition, and the per-call XC kernel statistic.
 
 ``--device`` defaults to ``cuda``; without a GPU that default is an error,
 and the CPU runs only when asked for with ``--device cpu``.
+
+``--checkpoint PATH`` (the JAX CLI's): saves the density every 25 cycles
+and at the end; when PATH exists and its nao, molecule and functional
+match, the SCF starts from its density.
 """
 
 from __future__ import annotations
@@ -51,10 +55,16 @@ def build_parser() -> argparse.ArgumentParser:
         help="J/K via the pivoted-Cholesky density-fitted ERIs (auto: on "
         "above nao 64, in-core ERIs at or below it)")
     p.add_argument(
-        "--df-aux", choices=["parity"], default="parity",
-        help="DF factorization: 'parity' = pivoted-Cholesky ERI vectors, "
-        "tol 1e-7 (guaranteed elementwise ERI error, ~1e-6 Eh SCF parity); "
-        "the RI auxiliary tiers of the JAX package are not ported yet")
+        "--df-aux", choices=["parity", "tight", "fast"], default="parity",
+        help="DF factorization: 'parity' = pivoted-Cholesky ERI vectors "
+        "(guaranteed elementwise error, ~1e-6 Eh SCF parity); 'tight'/"
+        "'fast' = even-tempered RI auxiliary sets (cheaper build; errors "
+        "that grow with size: ~1e-5/1e-4 Eh from the Cholesky energy at "
+        "DHA, nao 152)")
+    p.add_argument(
+        "--checkpoint", default=None,
+        help="Path to save the converged density (.npz); if the file exists, "
+        "resume from it")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="Where to run (default cuda; the CPU only on request)")
     p.add_argument(
@@ -80,6 +90,20 @@ def resolve_molecule(args) -> str:
         print(f"Error: {path} not found.")
         sys.exit(1)
     return path
+
+
+def jk_label(setup) -> str:
+    """How J/K were built, for the "System info" line: in-core, or the
+    density-fitting factor with its rank and build seconds."""
+    s = setup.sys
+    if s.eri is not None:
+        return "in-core ERIs"
+    rank = s.df_bq.shape[0]
+    if setup.df_aux in ("tight", "fast"):
+        return (f"RI DF ({setup.df_aux}), naux {rank}, {setup.ri_time:.2f}s")
+    if setup.df_aux == "override":
+        return f"external DF factor, rank {rank}"
+    return f"Cholesky DF, rank {rank}, {setup.df_time:.2f}s"
 
 
 def _time_xc(xc_fn, device: torch.device, reps: int = 10) -> float:
@@ -120,6 +144,11 @@ def run(argv=None):
     from quantum_compute_dft_tpu_torch.engine.fused_xc import xc_step_fused
     from quantum_compute_dft_tpu_torch.engine.xc_engine import xc_step
     from quantum_compute_dft_tpu_torch.mol import from_xyz_file
+    from quantum_compute_dft_tpu_torch.scf.checkpoint import (
+        load_checkpoint,
+        periodic_saver,
+        save_checkpoint,
+    )
     from quantum_compute_dft_tpu_torch.scf.driver import (
         scf_host,
         scf_host_annealed,
@@ -132,12 +161,29 @@ def run(argv=None):
                               prune=not args.no_prune,
                               density_fit=density_fit, df_aux=args.df_aux,
                               device=device)
-    jk = ("in-core ERIs" if setup.sys.eri is not None else
-          f"Cholesky DF, rank {setup.sys.df_bq.shape[0]}, "
-          f"{setup.df_time:.2f}s")
     print(f"System info: NAO={setup.nao}  grid points={setup.ngrid}  "
-          f"occupied={setup.nocc}  J/K: {jk}  (build "
+          f"occupied={setup.nocc}  J/K: {jk_label(setup)}  (build "
           f"{setup.build_time:.2f}s)")
+
+    dm0 = None
+    if args.checkpoint and os.path.exists(args.checkpoint):
+        ck = load_checkpoint(args.checkpoint)
+        # the stored metadata must match, not just nao: a checkpoint from a
+        # different molecule/functional with the same nao is a wrong guess
+        if ck["dm"].shape[0] != setup.nao:
+            print(f"Checkpoint {args.checkpoint} has nao={ck['dm'].shape[0]} "
+                  f"!= {setup.nao}; starting from the initial guess.")
+        elif ck["molecule"] and ck["molecule"] != mol_name:
+            print(f"Checkpoint {args.checkpoint} is for molecule "
+                  f"{ck['molecule']!r}, not {mol_name!r}; skipping resume.")
+        elif ck["functional"] and ck["functional"] != setup.functional.name:
+            print(f"Checkpoint {args.checkpoint} is for functional "
+                  f"{ck['functional']}, not {setup.functional.name}; "
+                  "skipping resume.")
+        else:
+            dm0 = ck["dm"]
+            print(f"Resuming from checkpoint {args.checkpoint} "
+                  f"(cycle {ck['cycle']}, E={ck['e_tot']:.8f})")
 
     print("\nSCF started")
     print("-" * 80)
@@ -151,9 +197,14 @@ def run(argv=None):
 
     t_start = time.time()
     kwargs = dict(callback=cb, max_cycle=args.max_cycle,
-                  conv_tol_e=args.conv_tol_e, conv_tol_d=args.conv_tol_d)
+                  conv_tol_e=args.conv_tol_e, conv_tol_d=args.conv_tol_d,
+                  dm0=dm0)
+    # mid-run periodic saves (atomic): a crash deep into a long run resumes
+    # from the last save instead of the initial guess
+    ck_cb = (periodic_saver(args.checkpoint, setup.functional.name, mol_name)
+             if args.checkpoint else None)
     res = scf_host(setup.sys, setup.functional, xc_impl=args.xc_impl,
-                   smear_kt=args.smear_kt, **kwargs)
+                   smear_kt=args.smear_kt, checkpoint_cb=ck_cb, **kwargs)
     if (not res.converged and args.smear_kt == 0.0
             and not args.no_auto_anneal):
         # integer occupations have no reachable fixed point for some
@@ -170,6 +221,9 @@ def run(argv=None):
     if device.type == "cuda":
         torch.cuda.synchronize()
     total_time = time.time() - t_start
+    if args.checkpoint:
+        save_checkpoint(args.checkpoint, res.dm, res.e_tot, res.n_iter,
+                        setup.functional.name, mol_name)
 
     # standalone XC statistic of the engine that ran the SCF's cycles
     s = setup.sys

@@ -50,13 +50,15 @@ def e_tables(imax: int, jmax: int, a, b, ab):
         memo[key] = val
         return val
 
-    return torch.stack([
+    out = torch.stack([
         torch.stack([
             torch.stack([E(i, j, t) for t in range(imax + jmax + 1)])
             for j in range(jmax + 1)
         ])
         for i in range(imax + 1)
     ])
+    memo.clear()   # E refers to itself: see r_tensor
+    return out
 
 
 def hermite_combos(lmax_total: int):
@@ -99,4 +101,9 @@ def r_tensor(lmax_total: int, p, pc, boys_table):
         memo[key] = val
         return val
 
-    return {tuv: R(0, *tuv) for tuv in hermite_combos(lmax_total)}
+    out = {tuv: R(0, *tuv) for tuv in hermite_combos(lmax_total)}
+    # R's closure refers to R itself: the cycle would keep every memoized
+    # intermediate alive until the cyclic collector runs (on the card, GBs
+    # per quartet tile); drop them now
+    memo.clear()
+    return out

@@ -3,8 +3,9 @@
 Port of ``quantum_compute_dft_tpu/kohn_sham.py``: basis, one- and
 two-electron integrals, grid and AO planes are built by this package
 (torch f64 on the given device), then the SCF runs.  ERIs are in-core up
-to AUTO_DF_NAO and density-fitted by pivoted Cholesky above it.  The entry
-points run on the GPU unless the caller passes device="cpu".
+to AUTO_DF_NAO and density-fitted above it, by pivoted Cholesky or by an
+RI auxiliary tier.  The entry points run on the GPU unless the caller
+passes device="cpu".
 """
 
 from __future__ import annotations
@@ -22,6 +23,12 @@ from quantum_compute_dft_tpu_torch.grids import Grid, build_grid
 from quantum_compute_dft_tpu_torch.integrals import eri_full, one_electron
 from quantum_compute_dft_tpu_torch.integrals.cholesky import (
     cholesky_eri_vectors,
+)
+from quantum_compute_dft_tpu_torch.integrals.density_fitting import (
+    AUX_LEVELS,
+    df_tensors,
+    ri_factor,
+    synced_time,
 )
 from quantum_compute_dft_tpu_torch.mol import Molecule
 from quantum_compute_dft_tpu_torch.scf.driver import (
@@ -47,6 +54,19 @@ class KSSetup:
     grid: Grid | None = None
     # seconds of build_time spent in the Cholesky factorization (DF only)
     df_time: float = 0.0
+    # the density-fitting factor: None (in-core ERIs), "parity" (Cholesky),
+    # "tight"/"fast" (RI tiers) or "override" (_df_override)
+    df_aux: str | None = None
+    # seconds of build_time spent in the RI build (aux integrals, metric
+    # eigh and the factor B), with its split: j3c_s, v2c_s, c2s_s (the
+    # integral loops and the cart->sph transform), factor_s, and naux (the
+    # metric directions kept)
+    ri_time: float = 0.0
+    ri_split: dict | None = None
+    # seconds of build_time per phase (device work finished at each mark):
+    # one_electron_s, two_electron_s (ERIs or the DF factor), grid_s, ao_s,
+    # system_s (uploads, S^-1/2 and the factor's copies)
+    setup_split: dict | None = None
 
 
 def _device(device) -> torch.device:
@@ -74,50 +94,82 @@ def prepare(
     prune: bool = True,
     density_fit: bool | None = None,
     df_aux: str = "parity",
+    _df_override: tuple | None = None,
     device="cuda",
 ) -> KSSetup:
     """Basis, integrals, grid and AO planes on `device`.
 
     density_fit=None auto-selects: in-core ERIs up to nao AUTO_DF_NAO,
-    pivoted-Cholesky density fitting above (tol 1e-7: elementwise ERI
-    error <= 1e-7 by construction).  df_aux='parity' (the Cholesky factor)
-    is the only factorization ported; the RI auxiliary tiers 'tight' and
-    'fast' raise NotImplementedError."""
+    density fitting above.  df_aux picks the factorization:
+      'parity' (default): pivoted-Cholesky ERI vectors, tol 1e-7
+        (elementwise ERI error <= 1e-7 by construction);
+      'tight' / 'fast': the even-tempered RI auxiliary tiers
+        (integrals/density_fitting.py): a cheaper build, with errors that
+        grow with size (~1e-5 / 1e-4 Eh from the Cholesky energy at DHA,
+        nao 152).
+    _df_override=(j3c, v2c) supplies the factorization from outside, as the
+    JAX package's hook: (L, None) a Cholesky factor (e.g. another
+    tolerance's), (j3c, v2c) RI integrals and their metric; it implies
+    density fitting."""
     device = _device(device)
     t0 = time.time()
     fn = _functional(functional)
     basis = build_basis(mol)
     s, t, v = one_electron(basis, mol.coords, mol.charges, device=device)
+    marks = [t0, synced_time(device)]
     if density_fit is None:
         density_fit = basis.nao > AUTO_DF_NAO
     eri = l_vec = None
-    df_time = 0.0
-    if density_fit:
-        if df_aux != "parity":
-            raise NotImplementedError(
-                f"df_aux={df_aux!r}: the RI auxiliary-basis tiers ('tight', "
-                "'fast') are not ported yet; use df_aux='parity' (the "
-                "pivoted-Cholesky factor)")
+    df_time = ri_time = 0.0
+    ri_split = None
+    if _df_override is not None:
+        df_aux = "override"
+        j3c, v2c = (None if a is None else torch.as_tensor(
+            a, dtype=torch.float64, device=device) for a in _df_override)
+        l_vec = j3c if v2c is None else ri_factor(j3c, v2c)[0]
+        j3c = v2c = None
+    elif not density_fit:
+        df_aux = None
+        eri = eri_full(basis, device=device)
+    elif df_aux == "parity":
         t_df = time.time()
         l_vec = cholesky_eri_vectors(basis, device=device)
         df_time = time.time() - t_df
+    elif df_aux in AUX_LEVELS:
+        t_df = synced_time(device)
+        ri_split = {}
+        j3c, v2c = df_tensors(basis, mol, aux_level=df_aux, device=device,
+                              timings=ri_split)
+        t_b = synced_time(device)
+        l_vec, ri_split["naux"] = ri_factor(j3c, v2c)
+        del j3c, v2c
+        ri_split["factor_s"] = synced_time(device) - t_b
+        ri_time = synced_time(device) - t_df
     else:
-        eri = eri_full(basis, device=device)
+        raise ValueError(f"df_aux must be 'parity', 'tight' or 'fast', not "
+                         f"{df_aux!r}")
+    marks.append(synced_time(device))
     if grid is None:
         grid = build_grid(mol, level=grid_level, prune=prune, device=device)
+    marks.append(synced_time(device))
     if fn.needs_grad:
         ao, ao_grad = eval_ao(basis, grid.coords, deriv=1, device=device)
     else:
         ao, ao_grad = eval_ao(basis, grid.coords, deriv=0, device=device), None
+    marks.append(synced_time(device))
     sys = make_system(
         t + v, s, eri, ao, grid.weights, ao_grad, mol.energy_nuc(), mol.nocc,
         sad_occ=sad_occupations(basis, mol.charges, mol.nelec),
         nopen=mol.nopen, device=device, df_l=l_vec,
         build_k=fn.hyb_coeff != 0.0,
     )
+    marks.append(synced_time(device))
+    split = dict(zip(("one_electron_s", "two_electron_s", "grid_s", "ao_s",
+                      "system_s"), np.diff(marks).tolist()))
     return KSSetup(sys=sys, functional=fn, nao=basis.nao, ngrid=grid.ngrid,
-                   nocc=mol.nocc, build_time=time.time() - t0, grid=grid,
-                   df_time=df_time)
+                   nocc=mol.nocc, build_time=marks[-1] - t0, grid=grid,
+                   df_time=df_time, df_aux=df_aux, ri_time=ri_time,
+                   ri_split=ri_split, setup_split=split)
 
 
 def setup_from_arrays(hcore, s, eri, ao, ao_grad, weights, e_nuc, nocc,

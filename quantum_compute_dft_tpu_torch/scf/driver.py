@@ -460,6 +460,8 @@ def scf_host(
     smear_kt: float = 0.0,
     mixer: str = "cdiis",
     mix_alpha: float = 0.2,
+    checkpoint_cb: Callable | None = None,
+    checkpoint_every: int = 25,
 ) -> SCFResult:
     """Host SCF loop; callback(cycle, eb, dE, dnorm) after each cycle.
 
@@ -484,7 +486,15 @@ def scf_host(
     fresh CDIIS history once ||dD|| < ADIIS_TO_CDIIS); 'mix+cdiis' (damped
     linear mixing with mix_alpha, then CDIIS below MIX_TO_CDIIS) or 'mix'
     (never hands over).  While ADIIS or mixing runs there is no level shift
-    and the shift controller is not fed."""
+    and the shift controller is not fed.
+
+    checkpoint_cb(cycles done, dm (numpy), e_tot) is called after every
+    checkpoint_every-th cycle that does not end the run (see
+    scf.checkpoint.periodic_saver), as the JAX package's scf_host_staged
+    calls it: with the density carried into the next cycle and the energy
+    that the cycle reported, whose J, K and XC come from the cycle's input
+    density, so the stored e_tot is one cycle older than dm, as in the JAX
+    loop (resume reads only dm)."""
     if xc_impl not in ("f64", "fast"):
         raise ValueError(f"xc_impl must be 'f64' or 'fast', not {xc_impl!r}")
     dm = initial_guess(sys) if dm0 is None else torch.as_tensor(
@@ -550,6 +560,9 @@ def scf_host(
             dm = _damp(dm_new, dm, dnorm, dnorm_prev)
         dnorm_prev = dnorm
         e_old = eb.e_tot
+        if (checkpoint_cb is not None and checkpoint_every > 0
+                and (cycle + 1) % checkpoint_every == 0):
+            checkpoint_cb(cycle + 1, dm.cpu().numpy(), e_old)
     eb = (energy_of_dm(sys, functional, dm) if max_cycle > 0
           else EnergyBreakdown(*(float("nan"),) * 5))
     return SCFResult(False, max_cycle, dm, eb, eb.e_tot,

@@ -130,9 +130,17 @@ def test_df_scf_matches_jax_incore():
 
 @pytest.mark.parametrize("df_aux", ["tight", "fast"])
 def test_ri_aux_tiers_not_ported(df_aux):
-    with pytest.raises(NotImplementedError, match="RI auxiliary"):
+    """The RI tiers, which raised NotImplementedError before they were
+    ported, now build an RI factor (tests/test_torch_ri.py holds them to
+    the JAX package); an unknown tier still raises."""
+    setup = kohn_sham.prepare(from_xyz_file(H2O), "LDA", grid_level=1,
+                              density_fit=True, df_aux=df_aux, device="cpu")
+    assert setup.df_aux == df_aux and setup.sys.eri is None
+    assert setup.sys.df_l is None   # LDA: no exact exchange, no K factor
+    assert setup.sys.df_bq.shape[0] == setup.ri_split["naux"]
+    with pytest.raises(ValueError, match="df_aux"):
         kohn_sham.prepare(from_xyz_file(H2O), "LDA", grid_level=1,
-                          density_fit=True, df_aux=df_aux, device="cpu")
+                          density_fit=True, df_aux="loose", device="cpu")
 
 
 def test_cli_density_fit_on_cpu():

@@ -63,6 +63,8 @@ def test_source_scan_finds_no_jax_import():
              for n in os.listdir(os.path.join(ROOT, "tools"))
              if n.startswith("torch_") and n.endswith(".py")]
     assert os.path.join(ROOT, "tools", "torch_run_all_molecules.py") in tools
+    assert os.path.join(ROOT, "tools", "torch_northstar.py") in tools
+    assert os.path.join(ROOT, "tools", "torch_kernel_timing.py") in tools
     files += tools
     assert len(files) > 20
     bad = []
