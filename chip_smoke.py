@@ -72,6 +72,27 @@ raises and the script exits non-zero without the final line):
         plain version and the f64 engine there.  The fast schedule's kernel
         phase stalls there (tools/torch_northstar.py, PERF.md): it is not
         run here
+     f. the CLI entry points ported last, through the CLI in process:
+        (a) Benzene/PBE on its native grid written to a 6-column file at
+        full precision and read back with --grid-file, within 1e-10 Eh of
+        the native-grid run; (b) the setup cache: Decane/B3LYP cold then
+        warm in one fresh cache directory (the warm prepare loads the
+        Cholesky factor and the grid; energies within 1e-12 Eh), and DHA
+        cold (kohn_sham.prepare) then warm (its --jit-loop run in (d)), the
+        setup seconds printed; (c) --validate native on H2O/B3LYP and
+        Benzene/PBE, each with --xc-impl f64 and the default fast: the C++
+        host engine's energy within 1e-8 Eh of the f64 schedule's energy at
+        its density (tests/test_runtime.py's bar) and 1e-7 Eh of the fast
+        schedule's (the golden bar); (d) --jit-loop (scf_jit, CUDA graphs)
+        on H2O/B3LYP in-core and DHA/B3LYP density-fitted, converged and
+        within 1e-9 Eh of scf_host(xc_impl="f64") on the same setup, and the
+        SCF wall and device-busy share (torch.profiler) of one scf_jit and
+        one scf_host f64 run each at Benzene/PBE and DHA/B3LYP, beside
+        scf_jit's wall with a block of 1 cycle between host reads; (e)
+        --xc-impl pallas on Benzene/PBE, converged and within
+        5e-5 |E_xc| of the f64 energy (the kernel's contract).  Every phase
+        before this one runs with the setup cache off (DFT_SETUP_CACHE=0),
+        so its setup seconds are cold builds
   5. the variant sweep (tools/torch_xc_sweep.py, in process) at DHA grid 3
      with the launch counts set to 0 just before it: one JSON line per
      variant, one launch of each variant's kernel per kernel call it made,
@@ -137,6 +158,16 @@ RI_CPU_CHECK = (("H2O", "tight"), ("H2Se", "fast"))
 # and factor rank)
 NORTHSTAR_TOL = 1e-6
 GOLDEN_TOL = 1e-7            # tests/golden_energies.json's tolerance
+# phase 4f: --grid-file against the native grid (the same points, written
+# at full precision); the setup cache's warm run against its cold one;
+# --validate native against the f64 schedule at its density
+# (tests/test_runtime.py's stationary-energy bar) and the fast schedule
+# (GOLDEN_TOL); scf_jit against scf_host f64 (tests/test_scf.py's bar); the
+# pallas schedule against f64, of |E_xc| (the kernel's contract, TOL_F64)
+GRID_FILE_TOL = 1e-10
+CACHE_TOL = 1e-12
+NATIVE_F64_TOL = 1e-8
+JIT_TOL = 1e-9
 # phase 4c's electronic temperature (Eh): that of the golden table's six
 # smeared rows (tools/gen_golden.py's ladder)
 FON_KT = 0.2
@@ -799,6 +830,256 @@ def phase_northstar(dev, rec):
            f"{ns.JAX_NGRID}")
 
 
+def _cli_quiet(fname, mol, dev, *args):
+    """One CLI run in process at grid level 3 with its output captured ->
+    (setup, SCFResult, SCF seconds, output text)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from quantum_compute_dft_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        setup, res, scf_s = cli.run([
+            fname, mol, "--molecules-dir", os.path.join(HERE, "molecules"),
+            "--grid-level", "3", "--device", dev.type, *args])
+    torch.cuda.synchronize()
+    return setup, res, scf_s, out.getvalue()
+
+
+def _profiled(fn, dev):
+    """One run of fn() under torch.profiler -> (result, wall s, device
+    busy s, busy share)."""
+    import torch
+
+    from quantum_compute_dft_tpu_torch.utils.profiling import (
+        busy_seconds,
+        trace,
+    )
+
+    torch.cuda.synchronize(dev)
+    with trace(os.path.join(HERE, "build", "chip_smoke_trace")) as prof:
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        wall = time.time() - t0
+    busy = busy_seconds(prof)
+    if busy <= 0.0:
+        raise AssertionError("the profile shows no device time")
+    return out, wall, busy, busy / wall
+
+
+def _jit_vs_host(label, setup, dev, rec):
+    """scf_jit and scf_host f64 on one setup: unprofiled walls (scf_jit
+    also with a block of 1 cycle between host reads), then one profiled run
+    each (wall and device-busy share); records them under rec[label] ->
+    (scf_jit's (dm, eb, n, done), host SCFResult)."""
+    from quantum_compute_dft_tpu_torch.scf import driver
+    from quantum_compute_dft_tpu_torch.scf.driver import scf_host, scf_jit
+
+    s, fn = setup.sys, setup.functional
+    t0 = time.time()
+    jit = scf_jit(s, fn)
+    w_jit = time.time() - t0
+    block, driver.JIT_BLOCK = driver.JIT_BLOCK, 1
+    try:
+        t0 = time.time()
+        scf_jit(s, fn)
+        w_jit1 = time.time() - t0
+    finally:
+        driver.JIT_BLOCK = block
+    t0 = time.time()
+    host = scf_host(s, fn, xc_impl="f64")
+    w_host = time.time() - t0
+    _, pw_jit, busy_jit, share_jit = _profiled(lambda: scf_jit(s, fn), dev)
+    _, pw_host, busy_host, share_host = _profiled(
+        lambda: scf_host(s, fn, xc_impl="f64"), dev)
+    rec[label] = {"jit_cycles": jit[2], "host_cycles": host.n_iter,
+                  "jit_wall_s": w_jit, "jit_block1_wall_s": w_jit1,
+                  "host_wall_s": w_host,
+                  "jit_profiled_wall_s": pw_jit, "jit_busy_s": busy_jit,
+                  "jit_busy_share": share_jit,
+                  "host_profiled_wall_s": pw_host, "host_busy_s": busy_host,
+                  "host_busy_share": share_host,
+                  "de_jit_host": jit[1].e_tot - host.e_tot}
+    print(f"  {label}: scf_jit {jit[2]} cycles, wall {w_jit:.4f} s (block "
+          f"of 1 cycle: {w_jit1:.4f} s); "
+          f"scf_host f64 {host.n_iter} cycles, wall {w_host:.4f} s; "
+          f"profiled: scf_jit {pw_jit:.4f} s, busy {busy_jit:.4f} s "
+          f"({100 * share_jit:.1f}%), scf_host {pw_host:.4f} s, busy "
+          f"{busy_host:.4f} s ({100 * share_host:.1f}%); E jit - host "
+          f"{jit[1].e_tot - host.e_tot:+.2e}", flush=True)
+    return jit, host
+
+
+def phase_cli(dev):
+    """4f: --grid-file, the setup cache, --validate native, --jit-loop and
+    --xc-impl pallas through the CLI, with the launch counts set to 0 just
+    before and read just after; returns them and the numbers it recorded."""
+    import re
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from quantum_compute_dft_tpu_torch import kohn_sham
+    from quantum_compute_dft_tpu_torch.engine import fused_xc
+    from quantum_compute_dft_tpu_torch.grids import build_grid
+    from quantum_compute_dft_tpu_torch.mol import from_xyz_file
+    from quantum_compute_dft_tpu_torch.scf.driver import energy_of_dm
+
+    t0 = time.time()
+    _reset_launches()
+    rec = {}
+    fast_cycles = 0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_4f_",
+                           dir=os.path.join(HERE, "build"))
+
+    # (a) --grid-file: the native grid at full precision, read back
+    mol = from_xyz_file(os.path.join(HERE, "molecules", "Benzene.xyz"))
+    grid = build_grid(mol, level=3, device=dev)
+    gfile = os.path.join(tmp, "benzene_L3.grid")
+    np.savetxt(gfile, np.column_stack([grid.atom_idx, grid.coords,
+                                       grid.weights, grid.weights]),
+               fmt=["%d"] + ["%.17g"] * 5)
+    _, native, _, _ = _cli_quiet("GGA", "Benzene", dev)
+    _, filed, _, _ = _cli_quiet("GGA", "Benzene", dev, "--grid-file", gfile)
+    fast_cycles += native.fast_cycles + filed.fast_cycles
+    de = filed.e_tot - native.e_tot
+    print(f"  (a) GGA Benzene --grid-file ({grid.ngrid} points): E="
+          f"{filed.e_tot:.10f}, native grid {native.e_tot:.10f} ({de:+.2e}),"
+          f" BENCH {native.e_tot - BENZENE_E:+.2e}", flush=True)
+    if not (native.converged and filed.converged
+            and abs(de) < GRID_FILE_TOL
+            and abs(native.e_tot - BENZENE_E) < BENZENE_TOL):
+        raise AssertionError("4f (a): --grid-file run departs from the "
+                             "native grid's")
+
+    # (b) the setup cache, in a fresh directory
+    env = {k: os.environ.get(k) for k in ("DFT_SETUP_CACHE",
+                                          "DFT_SETUP_CACHE_DIR")}
+    os.environ.update(DFT_SETUP_CACHE="1",
+                      DFT_SETUP_CACHE_DIR=os.path.join(tmp, "cache"))
+    try:
+        runs = [_cli_quiet("B3LYP", "Decane", dev) for _ in range(2)]
+        (cold, r_cold, _, _), (warm, r_warm, _, _) = runs
+        fast_cycles += r_cold.fast_cycles + r_warm.fast_cycles
+        de = r_warm.e_tot - r_cold.e_tot
+        rec["decane_cache"] = {
+            "cold_setup_s": cold.build_time, "warm_setup_s": warm.build_time,
+            "cold_cholesky_s": cold.df_time, "warm_hits": warm.cache_hits,
+            "cold_split": cold.setup_split, "warm_split": warm.setup_split}
+        print(f"  (b) B3LYP Decane setup cold {cold.build_time:.3f} s "
+              f"(Cholesky {cold.df_time:.3f} s, hits {cold.cache_hits}), "
+              f"warm {warm.build_time:.3f} s (hits {warm.cache_hits}, "
+              f"split {json.dumps(warm.setup_split)}); E warm - cold "
+              f"{de:+.2e}", flush=True)
+        if (cold.cache_hits or not {"cdvec", "grid"} <= set(warm.cache_hits)
+                or warm.df_time != 0.0 or abs(de) > CACHE_TOL
+                or abs(r_cold.e_tot - DECANE_E) >= DF_TOL):
+            raise AssertionError("4f (b): the warm Decane run did not load "
+                                 "the factor and grid, or departs")
+        dha = from_xyz_file(os.path.join(HERE, "molecules", "DHA.xyz"))
+        cold = kohn_sham.prepare(dha, "B3LYP", grid_level=3, device=dev)
+        print(f"  (b) B3LYP DHA setup cold {cold.build_time:.3f} s "
+              f"(Cholesky {cold.df_time:.3f} s)", flush=True)
+        rec["dha_cache"] = {"cold_setup_s": cold.build_time,
+                            "cold_cholesky_s": cold.df_time}
+        del cold
+
+        # (d) --jit-loop; DHA's prepare is its warm setup
+        jit_rec = {}
+        for fname, name, ref_label in (("B3LYP", "H2O", None),
+                                       ("B3LYP", "DHA", "DHA/B3LYP")):
+            setup, res, scf_s, _ = _cli_quiet(fname, name, dev, "--jit-loop")
+            host = None
+            if ref_label is None:
+                from quantum_compute_dft_tpu_torch.scf.driver import scf_host
+
+                host = scf_host(setup.sys, setup.functional, xc_impl="f64")
+            else:
+                rec["dha_cache"].update(warm_setup_s=setup.build_time,
+                                        warm_hits=setup.cache_hits)
+                print(f"  (b) B3LYP DHA setup warm {setup.build_time:.3f} s "
+                      f"(hits {setup.cache_hits})", flush=True)
+                if not {"cdvec", "grid"} <= set(setup.cache_hits):
+                    raise AssertionError("4f (b): DHA's warm prepare did not "
+                                         "load the factor and grid")
+                _, host = _jit_vs_host(ref_label, setup, dev, jit_rec)
+            de = res.e_tot - host.e_tot
+            print(f"  (d) {fname} {name} --jit-loop: converged={res.converged}"
+                  f" cycles={res.n_iter} E={res.e_tot:.10f} SCF {scf_s:.3f} s;"
+                  f" scf_host f64 {host.n_iter} cycles, E - host {de:+.2e}",
+                  flush=True)
+            if not (res.converged and abs(de) < JIT_TOL):
+                raise AssertionError(f"4f (d): {name} --jit-loop {res.e_tot} "
+                                     f"vs scf_host f64 {host.e_tot}")
+            del setup
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    # (c) --validate native
+    for fname, name in (("B3LYP", "H2O"), ("GGA", "Benzene")):
+        e_nat = {}
+        for xc_impl in ("f64", "fast"):
+            setup, res, _, out = _cli_quiet(fname, name, dev, "--xc-impl",
+                                            xc_impl, "--validate", "native")
+            m = re.search(r"native C\+\+ \(\w+\) energy : (\S+) Ha\s+\[(\d+) "
+                          r"cycles\][\s\S]*native engine time\s+: (\S+) s", out)
+            if m is None:
+                raise AssertionError(f"4f (c): no native energy in:\n{out}")
+            e = float(m.group(1))
+            if xc_impl == "f64":
+                e_ref = energy_of_dm(setup.sys, setup.functional,
+                                     res.dm).e_tot
+                tol = NATIVE_F64_TOL
+            else:
+                fast_cycles += res.fast_cycles
+                e_ref, tol = res.e_tot, GOLDEN_TOL
+            e_nat[xc_impl] = e - e_ref
+            print(f"  (c) {fname} {name} --xc-impl {xc_impl} --validate "
+                  f"native: native E={e:.10f} ({m.group(2)} cycles, "
+                  f"{m.group(3)} s on the host), the {xc_impl} schedule's "
+                  f"{e_ref:.10f}, {e - e_ref:+.2e}", flush=True)
+            if not (res.converged and abs(e - e_ref) < tol):
+                raise AssertionError(f"4f (c): native {e} vs {xc_impl} "
+                                     f"{e_ref} (tol {tol})")
+        rec[f"native_{name}"] = e_nat
+
+    # (d) Benzene/PBE walls and busy shares; (e) --xc-impl pallas
+    setup, pal, _, _ = _cli_quiet("GGA", "Benzene", dev, "--xc-impl",
+                                  "pallas")
+    _, host = _jit_vs_host("Benzene/PBE", setup, dev, jit_rec)
+    bar = TOL_F64 * abs(host.energy.e_xc)
+    de = pal.e_tot - host.e_tot
+    rec["jit"] = jit_rec
+    rec["pallas_benzene"] = {"cycles": pal.n_iter, "de_f64": de,
+                             "bar": bar}
+    print(f"  (e) GGA Benzene --xc-impl pallas: converged={pal.converged} "
+          f"cycles={pal.n_iter} E={pal.e_tot:.10f}, f64 {host.e_tot:.10f} "
+          f"({de:+.2e}, bar {bar:.2e})", flush=True)
+    if not (pal.converged and abs(de) <= bar):
+        raise AssertionError("4f (e): the pallas schedule outside the "
+                             "kernel's contract")
+    fast_cycles += pal.fast_cycles
+    launches = dict(fused_xc.LAUNCHES)
+    if launches["K1"] < max(1, fast_cycles):
+        raise AssertionError(f"4f: K1 {launches['K1']} launches for "
+                             f"{fast_cycles} kernel-phase cycles")
+    shutil.rmtree(tmp, ignore_errors=True)
+    _phase("4f CLI entry points", t0, f"--grid-file, the setup cache, "
+           f"--validate native, --jit-loop and --xc-impl pallas within their "
+           f"bars; launches {launches}, kernel-phase cycles {fast_cycles}; "
+           f"{json.dumps(rec)}")
+    return launches
+
+
 def phase_sweep():
     """The variant sweep's entry point at DHA grid 3, in process, with the
     launch counts set to 0 just before and read just after; returns them."""
@@ -832,6 +1113,9 @@ def phase_sweep():
 
 
 def main() -> int:
+    # every phase times cold setup builds; phase 4f turns the setup cache
+    # on in a directory of its own
+    os.environ["DFT_SETUP_CACHE"] = "0"
     smi = phase_env()
     phase_build()
     import torch
@@ -846,6 +1130,7 @@ def main() -> int:
     fon = phase_fon(dev)
     ri = phase_ri(dev, cholesky_s)
     phase_northstar(dev, rec)
+    cli = phase_cli(dev)
     sweep = phase_sweep()
 
     kernels = []
@@ -855,7 +1140,7 @@ def main() -> int:
         if kid in ("K1", "K2"):  # the SCF's kernels: the main paths' counts
             entry.update(launches=df[kid], incore_launches=incore[kid],
                          fon_launches=fon[kid], ri_launches=ri[kid],
-                         sweep_launches=sweep[kid])
+                         cli_launches=cli[kid], sweep_launches=sweep[kid])
         else:
             entry["launches"] = sweep[kid]
         if entry["launches"] < 1:

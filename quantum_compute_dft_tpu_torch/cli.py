@@ -12,6 +12,15 @@ and the CPU runs only when asked for with ``--device cpu``.
 ``--checkpoint PATH`` (the JAX CLI's): saves the density every 25 cycles
 and at the end; when PATH exists and its nao, molecule and functional
 match, the SCF starts from its density.
+
+The JAX CLI's other arguments, with its semantics: ``--grid-file`` (a
+6-column grid in place of the native one), ``--jit-loop`` (scf_jit: the
+whole f64 SCF on the device, CUDA graphs on the card, no per-cycle table),
+``--xc-impl pallas`` (every cycle on the fused f32 kernel) and
+``--validate [auto|pyscf|native]`` (the end-of-run oracle: the native C++
+host engine re-solves the molecule; PySCF is not available, so 'pyscf'
+skips and 'auto' falls back to 'native').  Not ported: ``--staged`` (TPU
+dispatch) and ``--xc-impl mixed``.
 """
 
 from __future__ import annotations
@@ -41,15 +50,25 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Becke grid level 0-9")
     p.add_argument("--no-prune", action="store_true",
                    help="Disable grid pruning")
+    p.add_argument("--grid-file", default=None,
+                   help="6-column grid file (atom_idx x y z w w) overriding "
+                   "the native grid")
     p.add_argument("--max-cycle", type=int, default=200)
     p.add_argument("--conv-tol-e", type=float, default=1e-8)
     p.add_argument("--conv-tol-d", type=float, default=1e-6)
     p.add_argument("--charge", type=int, default=0)
     p.add_argument(
-        "--xc-impl", choices=["fast", "f64"], default="fast",
+        "--jit-loop", action="store_true",
+        help="Run the whole f64 SCF on the device (CUDA graphs on the card; "
+        "no per-cycle table)")
+    p.add_argument(
+        "--xc-impl", choices=["f64", "pallas", "fast"], default="fast",
         help="SCF numerics schedule: 'fast' (default: XC on the fused f32 "
         "kernel every cycle, the candidate verified by f64 cycles, final "
-        "energy in f64) or 'f64' (every cycle in f64)")
+        "energy in f64), 'f64' (every cycle in f64) or 'pallas' (every "
+        "cycle's XC on the fused f32 kernel -- on this card the fused CUDA "
+        "kernel; the name is the JAX CLI's -- J/K in f64, f32 incl. the "
+        "reported energy)")
     p.add_argument(
         "--density-fit", choices=["auto", "on", "off"], default="auto",
         help="J/K via the pivoted-Cholesky density-fitted ERIs (auto: on "
@@ -77,7 +96,19 @@ def build_parser() -> argparse.ArgumentParser:
         help="Disable the automatic FON-RKS annealing-ladder retry when "
         "the integer-occupation SCF fails to converge (near-degenerate "
         "systems like CuO, where the reference crashes outright)")
+    p.add_argument(
+        "--validate", nargs="?", const="auto", default=None,
+        choices=["auto", "pyscf", "native"],
+        help="End-of-run oracle re-solve (ref dft.py:272-297): 'native' "
+        "re-solves with the independently written C++ host engine "
+        "(runtime/, in-core ERIs); 'pyscf' needs PySCF, which is not "
+        "available, and skips; bare --validate ('auto') falls back to "
+        "native")
     return p
+
+
+# --validate native rebuilds a density-fitted setup in-core up to this nao
+NATIVE_MAX_NAO = 130
 
 
 def resolve_molecule(args) -> str:
@@ -103,6 +134,8 @@ def jk_label(setup) -> str:
         return (f"RI DF ({setup.df_aux}), naux {rank}, {setup.ri_time:.2f}s")
     if setup.df_aux == "override":
         return f"external DF factor, rank {rank}"
+    if "cdvec" in setup.cache_hits:
+        return f"Cholesky DF, rank {rank}, from the setup cache"
     return f"Cholesky DF, rank {rank}, {setup.df_time:.2f}s"
 
 
@@ -143,21 +176,19 @@ def run(argv=None):
     from quantum_compute_dft_tpu_torch import kohn_sham
     from quantum_compute_dft_tpu_torch.engine.fused_xc import xc_step_fused
     from quantum_compute_dft_tpu_torch.engine.xc_engine import xc_step
+    from quantum_compute_dft_tpu_torch.grids import load_grid_file
     from quantum_compute_dft_tpu_torch.mol import from_xyz_file
     from quantum_compute_dft_tpu_torch.scf.checkpoint import (
         load_checkpoint,
-        periodic_saver,
         save_checkpoint,
     )
-    from quantum_compute_dft_tpu_torch.scf.driver import (
-        scf_host,
-        scf_host_annealed,
-    )
+    from quantum_compute_dft_tpu_torch.scf.driver import SCFResult, scf_jit
 
     mol = from_xyz_file(atom_path, charge=args.charge)
+    grid = load_grid_file(args.grid_file) if args.grid_file else None
     density_fit = {"auto": None, "on": True, "off": False}[args.density_fit]
     setup = kohn_sham.prepare(mol, args.functional,
-                              grid_level=args.grid_level,
+                              grid_level=args.grid_level, grid=grid,
                               prune=not args.no_prune,
                               density_fit=density_fit, df_aux=args.df_aux,
                               device=device)
@@ -185,39 +216,15 @@ def run(argv=None):
             print(f"Resuming from checkpoint {args.checkpoint} "
                   f"(cycle {ck['cycle']}, E={ck['e_tot']:.8f})")
 
-    print("\nSCF started")
-    print("-" * 80)
-    print(f"{'epoch':>5} {'total energy':>18} {'dE':>14} {'d-density':>14} "
-          f"{'HF_Ex':>12}")
-    print("-" * 80)
-
-    def cb(cycle, eb, de, dnorm):
-        print(f"{cycle + 1:5d} {eb.e_tot:18.8f} {de:14.6e} {dnorm:14.6e} "
-              f"{eb.e_ex_hf:12.6f}")
-
     t_start = time.time()
-    kwargs = dict(callback=cb, max_cycle=args.max_cycle,
-                  conv_tol_e=args.conv_tol_e, conv_tol_d=args.conv_tol_d,
-                  dm0=dm0)
-    # mid-run periodic saves (atomic): a crash deep into a long run resumes
-    # from the last save instead of the initial guess
-    ck_cb = (periodic_saver(args.checkpoint, setup.functional.name, mol_name)
-             if args.checkpoint else None)
-    res = scf_host(setup.sys, setup.functional, xc_impl=args.xc_impl,
-                   smear_kt=args.smear_kt, checkpoint_cb=ck_cb, **kwargs)
-    if (not res.converged and args.smear_kt == 0.0
-            and not args.no_auto_anneal):
-        # integer occupations have no reachable fixed point for some
-        # near-degenerate systems (the CuO d-shell doublet); retry with the
-        # FON-RKS ladder on the f64 host loop with the ADIIS->CDIIS mixer,
-        # as the JAX package's CLI does
-        print("-" * 80)
-        print("SCF did not converge with integer occupations; "
-              "retrying with the FON-RKS annealing ladder "
-              "(Fermi smearing, kT 0.5 annealed toward 0.1; the "
-              "coldest converged rung is reported)")
-        res = scf_host_annealed(setup.sys, setup.functional,
-                                mixer="adiis+cdiis", **kwargs)
+    if args.jit_loop:
+        # the JAX CLI's --jit-loop: scf_jit from the initial guess with the
+        # module's convergence constants, no table, no ladder
+        dm, eb, n_iter, done = scf_jit(setup.sys, setup.functional,
+                                       max_cycle=args.max_cycle)
+        res = SCFResult(done, n_iter, dm, eb, eb.e_tot)
+    else:
+        res = _scf(args, setup, mol_name, dm0)
     if device.type == "cuda":
         torch.cuda.synchronize()
     total_time = time.time() - t_start
@@ -227,7 +234,7 @@ def run(argv=None):
 
     # standalone XC statistic of the engine that ran the SCF's cycles
     s = setup.sys
-    if args.xc_impl == "fast":
+    if args.xc_impl in ("fast", "pallas") and not args.jit_loop:
         xc_label = "fused f32 CUDA" if device.type == "cuda" else \
             "fused f32 plain (cpu)"
         xc_fn = lambda: xc_step_fused(  # noqa: E731
@@ -258,7 +265,119 @@ def run(argv=None):
     print("Kernel statistics (avg per call):")
     print(f"  XC(Exc+Vxc): {xc_ms:.4f} ms  [{xc_label} engine]")
     print("-" * 80)
+    if args.validate:
+        _validate(args.validate, mol, setup, res.e_tot, args.grid_level,
+                  device)
     return setup, res, total_time
+
+
+def _scf(args, setup, mol_name, dm0):
+    """The host SCF loop with the per-cycle table, and the annealing-ladder
+    retry when the integer-occupation run fails."""
+    from quantum_compute_dft_tpu_torch.scf.checkpoint import periodic_saver
+    from quantum_compute_dft_tpu_torch.scf.driver import (
+        scf_host,
+        scf_host_annealed,
+    )
+
+    print("\nSCF started")
+    print("-" * 80)
+    print(f"{'epoch':>5} {'total energy':>18} {'dE':>14} {'d-density':>14} "
+          f"{'HF_Ex':>12}")
+    print("-" * 80)
+
+    def cb(cycle, eb, de, dnorm):
+        print(f"{cycle + 1:5d} {eb.e_tot:18.8f} {de:14.6e} {dnorm:14.6e} "
+              f"{eb.e_ex_hf:12.6f}")
+
+    kwargs = dict(callback=cb, max_cycle=args.max_cycle,
+                  conv_tol_e=args.conv_tol_e, conv_tol_d=args.conv_tol_d,
+                  dm0=dm0)
+    # mid-run periodic saves (atomic): a crash deep into a long run resumes
+    # from the last save instead of the initial guess
+    ck_cb = (periodic_saver(args.checkpoint, setup.functional.name, mol_name)
+             if args.checkpoint else None)
+    res = scf_host(setup.sys, setup.functional, xc_impl=args.xc_impl,
+                   smear_kt=args.smear_kt, checkpoint_cb=ck_cb, **kwargs)
+    if (not res.converged and args.smear_kt == 0.0
+            and not args.no_auto_anneal):
+        # integer occupations have no reachable fixed point for some
+        # near-degenerate systems (the CuO d-shell doublet); retry with the
+        # FON-RKS ladder on the f64 host loop with the ADIIS->CDIIS mixer,
+        # as the JAX package's CLI does
+        print("-" * 80)
+        print("SCF did not converge with integer occupations; "
+              "retrying with the FON-RKS annealing ladder "
+              "(Fermi smearing, kT 0.5 annealed toward 0.1; the "
+              "coldest converged rung is reported)")
+        res = scf_host_annealed(setup.sys, setup.functional,
+                                mixer="adiis+cdiis", **kwargs)
+    return res
+
+
+def _validate(mode, mol, setup, e_tot, grid_level, device):
+    """End-of-run oracle (ref dft.py:272-297): the native C++ host engine
+    re-solves the molecule and the energy difference is printed.  PySCF is
+    not available to the port, so 'pyscf' skips and 'auto' falls back to
+    'native'."""
+    if mode == "pyscf":
+        print("PySCF not available in this environment; skipping "
+              "validation.")
+        return
+    if mode == "auto":
+        print("PySCF not available; validating with the native C++ engine "
+              "instead (--validate native).")
+    _validate_native(mol, setup, e_tot, grid_level, device)
+
+
+def _validate_native(mol, setup, e_tot, grid_level, device):
+    """Re-solve with the independently written C++ host engine
+    (runtime/native_scf.py: C-ABI XC/J, scipy eigh and numpy CDIIS, the
+    reference driver's shape, ref dft.py:199-266) on the setup's in-core
+    operands moved to host numpy, and print the energy difference.  It runs
+    on the host by design: an engine apart from the SCF it checks.  A
+    density-fitted setup is rebuilt in-core (on `device`) up to nao 130."""
+    functional = setup.functional.name
+    if functional not in ("LDA", "GGA", "B3LYP"):
+        print(f"native validation supports LDA/GGA/B3LYP only "
+              f"(got {functional}); skipping.")
+        return
+    from quantum_compute_dft_tpu_torch.runtime import (
+        build_library,
+        run_native_scf,
+    )
+
+    try:
+        build_library()
+    except (OSError, RuntimeError) as e:  # no g++ toolchain, build failure
+        print(f"native engine unavailable ({type(e).__name__}: {e}); "
+              "skipping validation.")
+        return
+    s = setup.sys
+    if s.eri is None:
+        # the density-fitted setup has no in-core ERIs, which the C engine
+        # needs; rebuild in-core when the (nao^4) tensor is small enough
+        if setup.nao > NATIVE_MAX_NAO:
+            print(f"native validation needs the in-core ERI path "
+                  f"(nao={setup.nao} > {NATIVE_MAX_NAO}); skipping.")
+            return
+        from quantum_compute_dft_tpu_torch import kohn_sham
+
+        s = kohn_sham.prepare(mol, functional, grid_level=grid_level,
+                              density_fit=False, device=device).sys
+
+    def host(a):
+        return None if a is None else a.cpu().numpy()
+
+    t0 = time.time()
+    e_nat, _dm, n_iter, conv = run_native_scf(
+        functional, host(s.hcore), host(s.s), host(s.eri), host(s.ao),
+        host(s.weights), host(s.ao_grad), s.e_nuc, s.nocc)
+    tag = "" if conv else " (UNCONVERGED)"
+    print(f"native C++ ({functional}) energy : {e_nat:.10f} Ha"
+          f"  [{n_iter} cycles{tag}]")
+    print(f"difference                : {abs(e_nat - e_tot):.2e} Ha")
+    print(f"native engine time        : {time.time() - t0:.4f} s")
 
 
 def main(argv=None) -> int:

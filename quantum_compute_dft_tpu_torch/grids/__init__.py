@@ -1,1 +1,5 @@
-from quantum_compute_dft_tpu_torch.grids.builder import Grid, build_grid  # noqa: F401
+from quantum_compute_dft_tpu_torch.grids.builder import (  # noqa: F401
+    Grid,
+    build_grid,
+    load_grid_file,
+)

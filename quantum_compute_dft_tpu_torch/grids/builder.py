@@ -2,9 +2,14 @@
 partition; a copy of ``quantum_compute_dft_tpu/grids/builder.py`` with the
 partition weights computed on the given device).
 
-Native replacement for the reference's grid path ``init_gridpy`` (PySCF
-gen_grid level 3, ref grid.py:33-39) -> :func:`build_grid`.  The JAX
-package's ``load_grid_file`` (6-column grid files) is not ported yet.
+Native replacement for the reference's two grid paths:
+  * ``init_gridpy`` (PySCF gen_grid level 3, the live path,
+    ref grid.py:33-39) -> :func:`build_grid`;
+  * ``init_grid`` (external 6-column grid file, dead-code path,
+    ref grid.py:6-20) -> :func:`load_grid_file`.
+
+A Grid holds host numpy arrays; kohn_sham.prepare moves them to its device
+with the AO planes.
 """
 
 from __future__ import annotations
@@ -83,3 +88,16 @@ def build_grid(mol: Molecule, level: int = 3, prune: bool = True,
         weights = w_quad
     return Grid(coords=coords, weights=weights, atom_idx=atom_idx)
 
+
+
+def load_grid_file(path: str) -> Grid:
+    """Load the reference's 6-column grid format: atom_idx x y z w w
+    (ref grid.py:11-15, grid_txt/h2_grid.txt)."""
+    data = np.loadtxt(path)
+    if data.ndim == 1:
+        data = data[None, :]
+    return Grid(
+        coords=np.ascontiguousarray(data[:, 1:4]),
+        weights=np.ascontiguousarray(data[:, 4]),
+        atom_idx=data[:, 0].astype(np.int32),
+    )

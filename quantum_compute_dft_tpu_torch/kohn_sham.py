@@ -4,8 +4,10 @@ Port of ``quantum_compute_dft_tpu/kohn_sham.py``: basis, one- and
 two-electron integrals, grid and AO planes are built by this package
 (torch f64 on the given device), then the SCF runs.  ERIs are in-core up
 to AUTO_DF_NAO and density-fitted above it, by pivoted Cholesky or by an
-RI auxiliary tier.  The entry points run on the GPU unless the caller
-passes device="cpu".
+RI auxiliary tier.  The one-electron integrals, the Cholesky factor, small
+in-core ERIs and the grid go through the disk cache of setup_cache.py, at
+the JAX package's four points.  The entry points run on the GPU unless the
+caller passes device="cpu".
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import time
 import numpy as np
 import torch
 
+from quantum_compute_dft_tpu_torch import setup_cache
 from quantum_compute_dft_tpu_torch.basis import build_basis
 from quantum_compute_dft_tpu_torch.basis.basis_set import sad_occupations
 from quantum_compute_dft_tpu_torch.engine.ao_eval import eval_ao
@@ -41,6 +44,8 @@ from quantum_compute_dft_tpu_torch.xc.functionals import FUNCTIONALS, Functional
 
 # in-core ERIs below/at this nao, density fitting above (see prepare)
 AUTO_DF_NAO = 64
+# in-core ERI tensors are cached up to this nao ((nao^4) * 8 B: 330 MB at 80)
+CACHE_ERI_NAO = 80
 
 
 @dataclasses.dataclass
@@ -52,7 +57,8 @@ class KSSetup:
     nocc: int
     build_time: float
     grid: Grid | None = None
-    # seconds of build_time spent in the Cholesky factorization (DF only)
+    # seconds of build_time spent in the Cholesky factorization (DF only;
+    # 0 when the factor came from the setup cache)
     df_time: float = 0.0
     # the density-fitting factor: None (in-core ERIs), "parity" (Cholesky),
     # "tight"/"fast" (RI tiers) or "override" (_df_override)
@@ -67,6 +73,9 @@ class KSSetup:
     # one_electron_s, two_electron_s (ERIs or the DF factor), grid_s, ao_s,
     # system_s (uploads, S^-1/2 and the factor's copies)
     setup_split: dict | None = None
+    # the artifacts loaded from the setup cache instead of built: any of
+    # "int1e", "cdvec" (the Cholesky factor), "eri", "grid"
+    cache_hits: tuple = ()
 
 
 def _device(device) -> torch.device:
@@ -110,12 +119,35 @@ def prepare(
     _df_override=(j3c, v2c) supplies the factorization from outside, as the
     JAX package's hook: (L, None) a Cholesky factor (e.g. another
     tolerance's), (j3c, v2c) RI integrals and their metric; it implies
-    density fitting."""
+    density fitting.
+
+    The setup cache (setup_cache.py) serves the one-electron integrals,
+    the Cholesky factor (df_aux='parity'), in-core ERIs up to nao
+    CACHE_ERI_NAO and the grid (when `grid` is not given); an override
+    factor and the RI tiers are not cached, as in the JAX package.
+    KSSetup.cache_hits names what was loaded, and df_time stays 0 when the
+    factor was."""
     device = _device(device)
     t0 = time.time()
     fn = _functional(functional)
     basis = build_basis(mol)
-    s, t, v = one_electron(basis, mol.coords, mol.charges, device=device)
+    ck = setup_cache.molecule_basis_key(mol, basis)
+    hits = []
+
+    def cached(kind, key, names, build):
+        """Tensors on `device` from the cache, else from build() (stored)."""
+        got = setup_cache.load(kind, key, names)
+        if got is not None:
+            hits.append(kind)
+            return [torch.as_tensor(a, device=device) for a in got]
+        out = build()
+        setup_cache.store(kind, key, **{
+            n: a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+            for n, a in zip(names, out)})
+        return out
+
+    s, t, v = cached("int1e", ck, ("s", "t", "v"), lambda: one_electron(
+        basis, mol.coords, mol.charges, device=device))
     marks = [t0, synced_time(device)]
     if density_fit is None:
         density_fit = basis.nao > AUTO_DF_NAO
@@ -130,11 +162,21 @@ def prepare(
         j3c = v2c = None
     elif not density_fit:
         df_aux = None
-        eri = eri_full(basis, device=device)
+        if basis.nao <= CACHE_ERI_NAO:
+            (eri,) = cached("eri", ck, ("eri",),
+                            lambda: (eri_full(basis, device=device),))
+        else:
+            eri = eri_full(basis, device=device)
     elif df_aux == "parity":
         t_df = time.time()
-        l_vec = cholesky_eri_vectors(basis, device=device)
-        df_time = time.time() - t_df
+
+        def factor():
+            nonlocal df_time
+            out = cholesky_eri_vectors(basis, device=device)
+            df_time = time.time() - t_df
+            return (out,)
+
+        (l_vec,) = cached("cdvec", ck, ("l_vec",), factor)
     elif df_aux in AUX_LEVELS:
         t_df = synced_time(device)
         ri_split = {}
@@ -150,7 +192,16 @@ def prepare(
                          f"{df_aux!r}")
     marks.append(synced_time(device))
     if grid is None:
-        grid = build_grid(mol, level=grid_level, prune=prune, device=device)
+        gkey = f"{ck}_L{grid_level}_p{int(prune)}"
+        got = setup_cache.load("grid", gkey, ("coords", "weights", "atom_idx"))
+        if got is not None:
+            hits.append("grid")
+            grid = Grid(*got)
+        else:
+            grid = build_grid(mol, level=grid_level, prune=prune,
+                              device=device)
+            setup_cache.store("grid", gkey, coords=grid.coords,
+                              weights=grid.weights, atom_idx=grid.atom_idx)
     marks.append(synced_time(device))
     if fn.needs_grad:
         ao, ao_grad = eval_ao(basis, grid.coords, deriv=1, device=device)
@@ -169,7 +220,8 @@ def prepare(
     return KSSetup(sys=sys, functional=fn, nao=basis.nao, ngrid=grid.ngrid,
                    nocc=mol.nocc, build_time=marks[-1] - t0, grid=grid,
                    df_time=df_time, df_aux=df_aux, ri_time=ri_time,
-                   ri_split=ri_split, setup_split=split)
+                   ri_split=ri_split, setup_split=split,
+                   cache_hits=tuple(hits))
 
 
 def setup_from_arrays(hcore, s, eri, ao, ao_grad, weights, e_nuc, nocc,

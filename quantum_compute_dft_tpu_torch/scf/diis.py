@@ -9,6 +9,13 @@ B_ij = <e_i, e_j>, through a truncated pseudo-inverse of the unit-scaled B.
 
 The history buffers are updated in place (the JAX package rebuilds them
 functionally); callers always continue from the returned state.
+
+``diis_update`` branches on its host counter ``nsaved``.  Its graph-safe
+form (``diis_init_graph``, ``diis_push``, ``diis_extrapolate``, and
+``diis_update_graph`` chaining them) keeps the counter on the device, writes
+the slot by a one-hot select and replaces the branches by ``torch.where``,
+so a CUDA graph (scf.driver.scf_jit) replays it correctly at every count.
+It is split at its eigh, which the graph leaves outside (see scf_jit).
 """
 
 from __future__ import annotations
@@ -70,6 +77,62 @@ def diis_update(state: DIISState, f, dm, s, x):
     # distrust wild extrapolations (an ill-conditioning symptom)
     coef = torch.where(torch.sum(torch.abs(coef)) < 20.0, coef, newest)
     return new, torch.einsum("i,ijk->jk", coef, state.f_buf)
+
+
+class DIISGraphState(NamedTuple):
+    f_buf: torch.Tensor   # (M, nao, nao)
+    e_buf: torch.Tensor   # (M, nao*nao)
+    nsaved: torch.Tensor  # 0-dim int64, on the buffers' device
+
+
+def diis_init_graph(nao: int, space: int = 8, dtype=torch.float64,
+                    device="cpu") -> DIISGraphState:
+    st = diis_init(nao, space, dtype, device)
+    return DIISGraphState(st.f_buf, st.e_buf,
+                          torch.zeros((), dtype=torch.int64, device=device))
+
+
+def diis_push(state: DIISGraphState, f, dm, s, x):
+    """diis_update's insertion, functional and without host reads: ->
+    (new state, the unit-scaled B matrix to diagonalize)."""
+    m = state.f_buf.shape[0]
+    sdf = s @ dm @ f
+    err = x.T @ (f @ dm @ s - sdf) @ x
+    slots = torch.arange(m, device=f.device)
+    put = slots == state.nsaved % m
+    f_buf = torch.where(put[:, None, None], f, state.f_buf)
+    e_buf = torch.where(put[:, None], err.reshape(-1), state.e_buf)
+    nsaved = state.nsaved + 1
+    used = (slots < torch.clamp(nsaved, max=m)).to(f.dtype)
+    b_inner = (e_buf @ e_buf.T) * (used[:, None] * used[None, :])
+    scale = torch.max(torch.diagonal(b_inner)) + 1e-300
+    return (DIISGraphState(f_buf, e_buf, nsaved),
+            b_inner / scale + torch.diag(1.0 - used))
+
+
+def diis_extrapolate(state: DIISGraphState, f, w_eig, v_eig):
+    """diis_update's extrapolation from the eigenpairs of diis_push's B
+    (state: the one diis_push returned; f: the Fock matrix pushed)."""
+    m = state.f_buf.shape[0]
+    slots = torch.arange(m, device=f.device)
+    used = (slots < torch.clamp(state.nsaved, max=m)).to(f.dtype)
+    inv = torch.where(torch.abs(w_eig) > TSVD_THRESH, 1.0 / w_eig,
+                      torch.zeros_like(w_eig))
+    u = v_eig @ (inv * (v_eig.T @ used))
+    denom = used @ u
+    newest = (slots == (state.nsaved - 1) % m).to(f.dtype)
+    ok = torch.abs(denom) > 1e-8
+    coef = torch.where(ok, u / torch.where(ok, denom, 1.0), newest) * used
+    coef = torch.where(torch.sum(torch.abs(coef)) < 20.0, coef, newest)
+    f_ext = torch.einsum("i,ijk->jk", coef, state.f_buf)
+    # with a single stored matrix, extrapolation is the identity
+    return torch.where(state.nsaved == 1, f, f_ext)
+
+
+def diis_update_graph(state: DIISGraphState, f, dm, s, x):
+    """The graph-safe diis_update: -> (state, extrapolated Fock matrix)."""
+    state, b_s = diis_push(state, f, dm, s, x)
+    return state, diis_extrapolate(state, f, *torch.linalg.eigh(b_s))
 
 
 # ADIIS (Hu & Yang, JCP 132, 054109 (2010)): energy-based DIIS for the

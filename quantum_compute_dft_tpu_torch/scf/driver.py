@@ -8,7 +8,7 @@ level-shift controller, the charge-sloshing damping guard, FON-RKS Fermi
 smearing, the ADIIS and damped-mixing mixers, and the annealing ladder
 (:func:`scf_host_annealed`).
 
-One host loop, :func:`scf_host`, with two schedules:
+One host loop, :func:`scf_host`, with three schedules:
   * ``xc_impl='f64'`` -- every cycle in f64;
   * ``xc_impl='fast'`` (the CLI default) -- the JAX package's
     ``scf_host_staged(xc_impl='fast')``: each cycle builds XC with the
@@ -16,7 +16,17 @@ One host loop, :func:`scf_host`, with two schedules:
     and, on a density-fitted system, the f32 aux-major K (the JAX
     package's ``fast_jk='k'``).  A candidate fixed point is then verified
     by plain f64 cycles (f64 J and K), and the reported energy is one f64
-    ``energy_of_dm``.
+    ``energy_of_dm``;
+  * ``xc_impl='pallas'`` -- the JAX package's
+    ``scf_host_staged(xc_impl='pallas')``: every cycle takes its XC from
+    the f32 kernel (on the card the fused CUDA kernel; the name is the JAX
+    CLI's), J and K in f64, the plain convergence rule, and the reported
+    energies are the converged cycle's own.
+
+:func:`scf_jit` is the JAX package's ``scf_jit`` (the whole f64 SCF as one
+on-device loop): on the card, one cycle captured as CUDA graphs (three
+segments around its two eigh calls) and replayed in blocks, the host
+reading two device scalars per block.
 
 J/K come from the in-core ERIs or, above the in-core size, from the
 pivoted-Cholesky factor (integrals/density_fitting.py).  The JAX package's
@@ -33,6 +43,7 @@ devices: the card's f64 eigh is native.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import weakref
 from typing import Callable, NamedTuple
 
@@ -50,10 +61,14 @@ from quantum_compute_dft_tpu_torch.integrals.density_fitting import (
     _df_exchange_fast,
 )
 from quantum_compute_dft_tpu_torch.scf.diis import (
+    DIISGraphState,
     DIISState,
     adiis_init,
     adiis_update,
+    diis_extrapolate,
     diis_init,
+    diis_init_graph,
+    diis_push,
     diis_update,
 )
 from quantum_compute_dft_tpu_torch.xc.functionals import Functional
@@ -152,6 +167,13 @@ def _damp(dm_new, dm_old, dnorm: float, dnorm_prev: float):
     return dm_new
 
 
+def _damp_dev(dm_new, dm_old, dnorm, dnorm_prev):
+    """_damp on device scalars (no host read): scf_jit's form, the JAX
+    package's _damp."""
+    slosh = (dnorm > DAMP_MIN_DNORM) & (dnorm >= DAMP_RATIO * dnorm_prev)
+    return torch.where(slosh, 0.5 * (dm_new + dm_old), dm_new)
+
+
 def s_inv_sqrt(s: torch.Tensor, lindep: float = 1e-12) -> torch.Tensor:
     """Symmetric (Lowdin) orthogonalization S^(-1/2), linear-dependence
     safe (eigh only: the Newton-Schulz polish of the JAX package repairs
@@ -238,7 +260,12 @@ def _density(x, f, nocc: int, nopen: int = 0):
     (+ the singly-occupied HOMO for odd-electron systems, nopen=1)."""
     fp = x.T @ f @ x
     _, cp = torch.linalg.eigh(fp)
-    c = x @ cp
+    return _aufbau(x @ cp, nocc, nopen)
+
+
+def _aufbau(c, nocc: int, nopen: int = 0):
+    """D from the orbitals C (columns by rising energy): 2 C_occ C_occ^T
+    (+ the singly-occupied HOMO, nopen=1)."""
     cocc = c[:, :nocc]
     dm = 2.0 * cocc @ cocc.T
     if nopen:
@@ -395,16 +422,18 @@ def scf_iteration(sys: SCFSystem, functional: Functional, dm, diis,
 
 def scf_iteration_fast(sys: SCFSystem, functional: Functional, dm, diis,
                        shift: float = 0.0, smear_kt: float = 0.0,
-                       mixer: str = "cdiis", mix_alpha: float = 0.2):
-    """One kernel-phase cycle of the 'fast' schedule: f32 XC from the
-    fused kernel, then the tail (f32 K when density-fitted), with the
-    density sanity guard (scf_host_staged's cycle).  -> (dm_new, diis,
-    energies [5], dnorm).  Under mixer='mix' dnorm stays the raw map
-    residual, as in the JAX package's staged tail."""
+                       mixer: str = "cdiis", mix_alpha: float = 0.2,
+                       fast_k: bool = True):
+    """One kernel-phase cycle of the 'fast' and 'pallas' schedules: f32 XC
+    from the fused kernel, then the tail (the f32 K when density-fitted
+    and fast_k, the 'fast' schedule's; f64 K otherwise), with the density
+    sanity guard (scf_host_staged's cycle).  -> (dm_new, diis, energies
+    [5], dnorm).  Under mixer='mix' dnorm stays the raw map residual, as in
+    the JAX package's staged tail."""
     e_xc, vxc = _fused_xc(sys, functional, dm)
     dm_new, diis, energies = _cycle_tail(sys, functional, dm, diis, e_xc,
                                          vxc, shift, smear_kt, mixer,
-                                         fast_k=True)
+                                         fast_k=fast_k)
     dm_new, insane = _density_sanity(sys, dm, dm_new)
     dnorm = torch.linalg.norm(dm_new - dm) + insane
     if mixer == "mix":
@@ -439,8 +468,8 @@ class SCFResult:
     e_tot: float
     level_shift: float = 0.0
     shift_engaged_at: int | None = None
-    # 'fast' schedule: cycles whose XC ran on the fused f32 kernel, and
-    # the f64 verify cycles after them
+    # 'fast' and 'pallas' schedules: cycles whose XC ran on the fused f32
+    # kernel, and the f64 verify cycles after them ('fast' only)
     fast_cycles: int = 0
     verify_cycles: int = 0
     # electronic temperature this result was converged at (0 = integer
@@ -479,8 +508,13 @@ def scf_host(
     the returned density.  The cycle count and the callback span both
     phases.
 
+    xc_impl='pallas' (scf_host_staged(xc_impl='pallas')): every cycle is a
+    kernel-phase cycle with f64 J and K, to the plain convergence rule (no
+    ||dD|| streak, no f64 verify); the result carries the converged
+    cycle's own energies.
+
     smear_kt > 0 runs FON-RKS (Fermi-smeared occupations at that
-    electronic temperature in Eh) in every cycle of either schedule.
+    electronic temperature in Eh) in every cycle of any schedule.
 
     mixer: 'cdiis'; 'adiis+cdiis' (energy-based ADIIS, handing over to a
     fresh CDIIS history once ||dD|| < ADIIS_TO_CDIIS); 'mix+cdiis' (damped
@@ -495,8 +529,9 @@ def scf_host(
     that the cycle reported, whose J, K and XC come from the cycle's input
     density, so the stored e_tot is one cycle older than dm, as in the JAX
     loop (resume reads only dm)."""
-    if xc_impl not in ("f64", "fast"):
-        raise ValueError(f"xc_impl must be 'f64' or 'fast', not {xc_impl!r}")
+    if xc_impl not in ("f64", "fast", "pallas"):
+        raise ValueError(f"xc_impl must be 'f64', 'fast' or 'pallas', not "
+                         f"{xc_impl!r}")
     dm = initial_guess(sys) if dm0 is None else torch.as_tensor(
         dm0, dtype=torch.float64, device=sys.device)
     nao = dm.shape[0]
@@ -506,11 +541,13 @@ def scf_host(
     shiftc = _ShiftController(nao, sys.device)
     e_old = 0.0
     dnorm_prev = float("inf")
-    kernel_phase = xc_impl == "fast"   # then f64 verify cycles
+    kernel_phase = xc_impl != "f64"   # 'fast': then f64 verify cycles
+    kernel_step = functools.partial(scf_iteration_fast,
+                                    fast_k=xc_impl == "fast")
     dn_streak = 0
     n_fast = 0
     for cycle in range(max_cycle):
-        step = scf_iteration_fast if kernel_phase else scf_iteration
+        step = kernel_step if kernel_phase else scf_iteration
         dm_new, diis, en, dn_t = step(
             sys, functional, dm, diis,
             shift=0.0 if (use_adiis or use_mix) else shiftc.shift,
@@ -524,10 +561,10 @@ def scf_host(
         if callback:
             callback(cycle, eb, de, dnorm)
         converged = abs(de) < conv_tol_e and dnorm < conv_tol_d
-        if kernel_phase and not converged:
+        if xc_impl == "fast" and kernel_phase and not converged:
             dn_streak = dn_streak + 1 if dnorm < conv_tol_d else 0
             converged = dn_streak >= FAST_DN_STREAK
-        if converged and not kernel_phase:
+        if converged and (not kernel_phase or xc_impl == "pallas"):
             if xc_impl == "fast":
                 eb = energy_of_dm(sys, functional, dm_new)
             return SCFResult(True, cycle + 1, dm_new, eb, eb.e_tot,
@@ -620,3 +657,155 @@ def scf_host_annealed(
             ri.smear_kt = 0.0
             return ri
     return best if best is not None else r
+
+
+# cycles replayed on the card between two reads of (done, cycle); the
+# replays after convergence are masked no-ops
+JIT_BLOCK = 8
+
+
+def _jit_carry(sys: SCFSystem) -> dict:
+    """scf_jit's carry, all device tensors: the SAD density, the CDIIS
+    history and its count, the last cycle's energies [5], e_old,
+    dnorm_prev, cycle and done (the JAX loop's carry)."""
+    dm0 = initial_guess(sys)
+    diis = diis_init_graph(dm0.shape[0], device=sys.device)
+
+    def scalar(v, dtype=torch.float64):
+        return torch.full((), v, dtype=dtype, device=sys.device)
+
+    return {"dm": dm0.clone(), "f_buf": diis.f_buf, "e_buf": diis.e_buf,
+            "nsaved": diis.nsaved,
+            "energies": torch.zeros(5, dtype=torch.float64, device=sys.device),
+            "e_old": scalar(0.0), "dnorm_prev": scalar(float("inf")),
+            "cycle": scalar(0, torch.int64), "done": scalar(False, torch.bool)}
+
+
+def _jit_cycle(sys: SCFSystem, functional: Functional, st: dict,
+               max_cycle: int):
+    """One cycle of scf_jit on the carry `st`, written back in place and
+    masked: once done, or at max_cycle, it leaves `st` as it is.  The body
+    of the JAX loop: an f64 scf_iteration with CDIIS (no level shift, ADIIS
+    or smearing), the device-side damping, and done = |dE| < CONV_TOL_E and
+    ||dD|| < CONV_TOL_D (the module constants).  No host reads: the cycle is
+    a generator that yields each symmetric matrix it needs diagonalized
+    (the CDIIS B matrix, then the orthogonalized Fock matrix) and is sent
+    back its (eigenvalues, eigenvectors)."""
+    dm = st["dm"]
+    active = ~st["done"] & (st["cycle"] < max_cycle)
+    e_xc, vxc = xc_step(functional, dm, sys.ao, sys.weights, sys.ao_grad)
+    j = _build_j(sys, dm)
+    c_hf = functional.hyb_coeff
+    k = None
+    f = sys.hcore + j + vxc
+    if c_hf != 0.0:
+        k = _build_k(sys, dm)
+        f = f - 0.5 * c_hf * k
+    diis, b_s = diis_push(
+        DIISGraphState(st["f_buf"], st["e_buf"], st["nsaved"]), f, dm,
+        sys.s, sys.x)
+    w_b, v_b = yield b_s
+    f = diis_extrapolate(diis, f, w_b, v_b)
+    _, cp = yield sys.x.T @ f @ sys.x
+    dm_new = _aufbau(sys.x @ cp, sys.nocc, sys.nopen)
+    en = _energies(dm_new, sys, j, k, e_xc, c_hf)
+    dnorm = torch.linalg.norm(dm_new - dm)
+    done = (torch.abs(en[0] - st["e_old"]) < CONV_TOL_E) & (dnorm < CONV_TOL_D)
+    new = {"dm": _damp_dev(dm_new, dm, dnorm, st["dnorm_prev"]),
+           "f_buf": diis.f_buf, "e_buf": diis.e_buf, "nsaved": diis.nsaved,
+           "energies": en, "e_old": en[0], "dnorm_prev": dnorm,
+           "cycle": st["cycle"] + 1, "done": done}
+    for key, val in new.items():
+        st[key].copy_(torch.where(active, val, st[key]))
+
+
+def _run_cycle(gen) -> None:
+    """Drive a _jit_cycle generator eagerly, with torch.linalg.eigh."""
+    try:
+        mat = next(gen)
+        while True:
+            mat = gen.send(torch.linalg.eigh(mat))
+    except StopIteration:
+        pass
+
+
+def _capture_cycle(sys: SCFSystem, functional: Functional, st: dict,
+                   max_cycle: int) -> Callable[[], None]:
+    """One _jit_cycle on `st` captured as CUDA graphs -> replay().
+
+    torch.linalg.eigh checks its result's info flag on the host, a sync
+    that a capture forbids, so the cycle is captured in three segments
+    around its two eigh calls (the 8x8 CDIIS matrix and the nao x nao Fock
+    matrix), sharing one memory pool; replay() runs segment, eager eigh
+    into static buffers, segment, eager eigh, segment.  Warmed up first on
+    a side stream, on a copy of the carry."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _run_cycle(_jit_cycle(sys, functional,
+                              {k: v.clone() for k, v in st.items()},
+                              max_cycle))
+    torch.cuda.current_stream().wait_stream(side)
+    gen = _jit_cycle(sys, functional, st, max_cycle)
+    graphs, mats, outs = [], [], []
+    send = None
+    while True:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, pool=graphs[0].pool() if graphs else None):
+            try:
+                mat = next(gen) if send is None else gen.send(send)
+            except StopIteration:
+                mat = None
+        graphs.append(g)
+        if mat is None:
+            break
+        n = mat.shape[-1]
+        send = (torch.empty(n, dtype=mat.dtype, device=mat.device),
+                torch.empty((n, n), dtype=mat.dtype, device=mat.device))
+        mats.append(mat)
+        outs.append(send)
+
+    def replay():
+        for g, mat, (w, v) in zip(graphs, mats, outs):
+            g.replay()
+            w_e, v_e = torch.linalg.eigh(mat)
+            w.copy_(w_e)
+            v.copy_(v_e)
+        graphs[-1].replay()
+
+    return replay
+
+
+def scf_jit(sys: SCFSystem, functional: Functional,
+            max_cycle: int = MAX_CYCLE):
+    """The whole f64 SCF as one on-device loop (the JAX package's scf_jit,
+    a lax.while_loop): -> (dm, EnergyBreakdown, n_iter, done).
+
+    On the card one cycle (_jit_cycle) is captured as CUDA graphs, its
+    whole carry in static device tensors, every update masked by `done`,
+    and the host replays it in blocks of JIT_BLOCK cycles, reading (done,
+    cycle) once per block; the replays after convergence change nothing,
+    so n_iter is the while-loop's.  A failed capture raises: there is no
+    eager route on the card.  On the CPU the same cycle runs eagerly, one
+    per host check."""
+    st = _jit_carry(sys)
+    if sys.device.type == "cuda":
+        try:
+            cycle = _capture_cycle(sys, functional, st, max_cycle)
+        except Exception as e:
+            raise RuntimeError(f"scf_jit: CUDA graph capture failed ({e})"
+                               ) from e
+        block = JIT_BLOCK
+    else:
+        def cycle():
+            _run_cycle(_jit_cycle(sys, functional, st, max_cycle))
+        block = 1
+    while True:
+        for _ in range(block):
+            cycle()
+        done, n_iter = torch.stack([st["done"].to(torch.int64),
+                                    st["cycle"]]).tolist()
+        if done or n_iter >= max_cycle:
+            break
+    return (st["dm"], EnergyBreakdown(*st["energies"].tolist()), n_iter,
+            bool(done))

@@ -239,3 +239,32 @@ def test_cuda_k1_v_chunk_covers_the_grid_with_bounded_partials(npad, gpad):
     ldv = -(-npad // fused_xc.LDA_V_TILE) * fused_xc.LDA_V_TILE
     assert chunk > 0 and chunk % 16 == 0 and (nchunk - 1) * chunk < gpad
     assert nchunk * ldv * ldv <= fused_xc.LDA_V_PART_FLOATS
+
+
+@pytest.mark.parametrize("density_fit", [False, True])
+def test_scf_jit_graphs_match_the_eager_cycle(density_fit):
+    """scf_jit's CUDA-graph replays against the same cycle run eagerly on
+    the card: the same cycle count, energies within 1e-10 Eh (one
+    arithmetic, replayed), and the host f64 loop within 1e-9 Eh."""
+    from quantum_compute_dft_tpu_torch.scf.driver import (
+        _jit_carry,
+        _jit_cycle,
+        _run_cycle,
+        scf_host,
+        scf_jit,
+    )
+
+    dev = _cuda()
+    setup = kohn_sham.prepare(
+        from_xyz_file(os.path.join(ROOT, "molecules", "H2O.xyz")), "B3LYP",
+        grid_level=1, density_fit=density_fit, device=dev)
+    s, fn = setup.sys, setup.functional
+    dm, eb, n_iter, done = scf_jit(s, fn)
+    st = _jit_carry(s)
+    for _ in range(n_iter + 3):   # past convergence: masked, no change
+        _run_cycle(_jit_cycle(s, fn, st, 200))
+    assert done and bool(st["done"]) and int(st["cycle"]) == n_iter
+    assert abs(eb.e_tot - float(st["energies"][0])) < 1e-10
+    assert float(torch.abs(dm - st["dm"]).max()) < 1e-10
+    ref = scf_host(s, fn, xc_impl="f64")
+    assert ref.converged and abs(eb.e_tot - ref.e_tot) < 1e-9

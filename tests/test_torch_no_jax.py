@@ -2,9 +2,14 @@
 
 A subprocess with JAX and the JAX package blocked in sys.modules imports
 every module of the port; a source scan of the port, chip_smoke.py and
-the port's tools (tools/torch_*.py) finds no import of either.
+the port's tools (tools/torch_*.py) finds no import of either; and no
+string in the port's code (docstrings aside, which cite the modules each
+one ports) names a path inside the JAX package, so nothing there is read
+or built at run time (the port keeps its own copies, such as
+runtime/dft_host.cpp).
 """
 
+import ast
 import os
 import pkgutil
 import re
@@ -32,6 +37,9 @@ def _port_modules():
 def test_port_imports_without_jax():
     mods = _port_modules()
     assert len(mods) > 20, mods
+    for name in ("runtime.ffi", "runtime.native_scf", "setup_cache",
+                 "utils.profiling"):
+        assert f"{PKG}.{name}" in mods
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -72,4 +80,36 @@ def test_source_scan_finds_no_jax_import():
         with open(path) as f:
             for m in _BAD.finditer(f.read()):
                 bad.append((os.path.relpath(path, ROOT), m.group(0).strip()))
+    assert not bad, bad
+
+
+_JAX_PATH = re.compile(r"quantum_compute_dft_tpu(?!_torch)")
+
+
+def _docstrings(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)):
+            body = node.body
+            if (body and isinstance(body[0], ast.Expr)
+                    and isinstance(body[0].value, ast.Constant)):
+                yield body[0].value
+
+
+def test_port_code_names_no_jax_package_path():
+    bad = []
+    for base, _, names in os.walk(os.path.join(ROOT, PKG)):
+        for n in names:
+            if not n.endswith(".py"):
+                continue
+            path = os.path.join(base, n)
+            with open(path) as f:
+                tree = ast.parse(f.read())
+            docs = {id(d) for d in _docstrings(tree)}
+            for node in ast.walk(tree):
+                if (isinstance(node, ast.Constant)
+                        and isinstance(node.value, str)
+                        and id(node) not in docs
+                        and _JAX_PATH.search(node.value)):
+                    bad.append((os.path.relpath(path, ROOT), node.value))
     assert not bad, bad

@@ -101,8 +101,10 @@ def test_fast_schedule_matches_f64():
 
 @pytest.mark.parametrize("limit,df", [(6, True), (7, False)])
 def test_auto_rule_selects_df_above_limit(monkeypatch, limit, df):
-    # H2O has nao 7: density-fitted above the limit, in-core at it
+    # H2O has nao 7: density-fitted above the limit, in-core at it; with
+    # the setup cache off, so that df_time is this factorization's
     monkeypatch.setattr(kohn_sham, "AUTO_DF_NAO", limit)
+    monkeypatch.setenv("DFT_SETUP_CACHE", "0")
     setup = kohn_sham.prepare(from_xyz_file(_xyz("H2O")), "LDA",
                               grid_level=1, device="cpu")
     s = setup.sys
