@@ -93,6 +93,20 @@ raises and the script exits non-zero without the final line):
         5e-5 |E_xc| of the f64 energy (the kernel's contract).  Every phase
         before this one runs with the setup cache off (DFT_SETUP_CACHE=0),
         so its setup seconds are cold builds
+     g. the sharded SCF (parallel/) through tools/torch_northstar_mesh.py's
+        ranks, one process each: (a) two gloo ranks sharing card 0: H2O/B3LYP
+        in-core, the sharded XC and J/K against xc_step and the single-device
+        J/K within 1e-11; Decane/B3LYP on a Cholesky factor (rank 0 builds
+        it, rank 1 loads it), 5 cycles beside scf_iteration within the JAX
+        parity rule (|dE| <= 1e-8, max|dD| <= 1e-7), then the sharded loop
+        to |dE| < 1e-8 and ||dD|| < 1e-9 within 5e-9 Eh of
+        scf_host(xc_impl="f64", conv_tol_d=1e-9) on rank 0's setup; (b) NCCL
+        at world torch.cuda.device_count(), one card a rank: DHA/B3LYP
+        density-fitted, converged the same way within 5e-9 Eh of scf_host
+        f64 and 1e-6 Eh of docs/RESULTS.md, each loop's synced wall per
+        cycle printed.  After the last step every rank's density equals rank
+        0's bit for bit.  The sharded path runs the f64 engine, as the JAX
+        package's does: the ranks' K1/K2 launches are printed (0 expected)
   5. the variant sweep (tools/torch_xc_sweep.py, in process) at DHA grid 3
      with the launch counts set to 0 just before it: one JSON line per
      variant, one launch of each variant's kernel per kernel call it made,
@@ -168,6 +182,11 @@ GRID_FILE_TOL = 1e-10
 CACHE_TOL = 1e-12
 NATIVE_F64_TOL = 1e-8
 JIT_TOL = 1e-9
+# phase 4g: the sharded loop (to ||dD|| < 1e-9) against scf_host f64 on the
+# same setup (tests/test_parallel.py:121-136); the builders' bar is the
+# tool's BUILDERS_TOL
+MESH_LOOP_TOL = 5e-9
+MESH_D_TOL = 1e-9
 # phase 4c's electronic temperature (Eh): that of the golden table's six
 # smeared rows (tools/gen_golden.py's ladder)
 FON_KT = 0.2
@@ -1080,6 +1099,85 @@ def phase_cli(dev):
     return launches
 
 
+def _mesh(label, cfg, world, backend, device, e_ref=None):
+    """One tools/torch_northstar_mesh.py run in `world` rank processes; its
+    line, and raises when it misses a bar -> the record."""
+    import torch_northstar_mesh as mesh
+
+    t0 = time.time()
+    out = mesh.run(cfg, world, backend, device)
+    bad = mesh.failures(out)
+    launches = {k: sum(r[k] for r in out["launches_by_rank"])
+                for k in ("K1", "K2")}
+    msg = (f"  {label} ({world} {backend} ranks on {device}): nao="
+           f"{out['nao']} ngrid={out['ngrid']} cd_rank={out['cd_rank']}; "
+           f"spread {out['spread']:g}")
+    if "builders" in out:
+        msg += f"; builders {json.dumps(out['builders'])}"
+    if "parity_rows" in out:
+        rows = out["parity_rows"]
+        msg += (f"; parity {len(rows)} cycles, max |dE| "
+                f"{max(abs(r['dE']) for r in rows):.2e}, max|dD| "
+                f"{max(r['max_dD'] for r in rows):.2e}")
+    ref = out.get("reference")
+    if ref is not None:
+        msg += (f"; sharded loop converged={out['converged']} "
+                f"{out['cycles']} cycles E={out['e_tot']:.10f} "
+                f"{1e3 * out['scf_s'] / out['cycles']:.2f} ms/cycle (median "
+                f"{1e3 * out['cycle_s_median']:.2f}), scf_host "
+                f"f64 {ref['cycles']} cycles "
+                f"{1e3 * ref['s'] / ref['cycles']:.2f} ms/cycle, E - scf_host "
+                f"{ref['dE_mesh']:+.2e}")
+        if not (ref["converged"] and abs(ref["dE_mesh"]) < MESH_LOOP_TOL):
+            bad.append(f"E - scf_host {ref['dE_mesh']}")
+        if e_ref is not None:
+            msg += f", dE_ref {out['e_tot'] - e_ref:+.2e}"
+            if abs(out["e_tot"] - e_ref) >= DF_TOL:
+                bad.append(f"E {out['e_tot']} vs {e_ref}")
+    print(msg + f"; K1/K2 launches {launches} ({time.time() - t0:.2f} s)",
+          flush=True)
+    if bad:
+        raise AssertionError(f"4g {label}: {bad}")
+    return launches
+
+
+def phase_mesh():
+    """4g: the sharded SCF over rank processes (tools/torch_northstar_mesh.py),
+    two gloo ranks on card 0, then NCCL over every card; returns the ranks'
+    K1/K2 launches (the f64 engine's path: 0)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import torch_northstar_mesh as mesh
+
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_4g_",
+                           dir=os.path.join(HERE, "build"))
+    launches = [
+        _mesh("(a) B3LYP H2O grid 3 in-core builders",
+              mesh.config("H2O", grid_level=3, cd_tol=0, modes=("builders",)),
+              2, "gloo", "cuda:0"),
+        _mesh("(a) B3LYP Decane grid 3 Cholesky DF",
+              mesh.config("Decane", grid_level=3, cd_tol=1e-7, cycles=5,
+                          d_tol=MESH_D_TOL, reference=True, factor_dir=tmp),
+              2, "gloo", "cuda:0"),
+        _mesh("(b) B3LYP DHA grid 3 Cholesky DF",
+              mesh.config("DHA", grid_level=3, cd_tol=1e-7,
+                          modes=("converge",), d_tol=MESH_D_TOL,
+                          reference=True, factor_dir=tmp),
+              torch.cuda.device_count(), "nccl", "cuda", DHA_E)]
+    shutil.rmtree(tmp, ignore_errors=True)
+    total = {k: sum(n[k] for n in launches) for k in ("K1", "K2")}
+    _phase("4g sharded SCF", t0, f"builders within {mesh.BUILDERS_TOL:g}, "
+           f"parity within the JAX rule, loops within {MESH_LOOP_TOL:g} Eh of "
+           f"scf_host f64, the ranks' densities bitwise equal; ranks' "
+           f"launches {total}")
+    return total
+
+
 def phase_sweep():
     """The variant sweep's entry point at DHA grid 3, in process, with the
     launch counts set to 0 just before and read just after; returns them."""
@@ -1131,6 +1229,7 @@ def main() -> int:
     ri = phase_ri(dev, cholesky_s)
     phase_northstar(dev, rec)
     cli = phase_cli(dev)
+    phase_mesh()
     sweep = phase_sweep()
 
     kernels = []

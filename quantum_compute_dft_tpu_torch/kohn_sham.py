@@ -226,15 +226,17 @@ def prepare(
 
 def setup_from_arrays(hcore, s, eri, ao, ao_grad, weights, e_nuc, nocc,
                       nopen, sad_occ, functional: str | Functional,
-                      device="cuda") -> KSSetup:
+                      device="cuda", df_l=None) -> KSSetup:
     """A setup from precomputed numpy arrays (e.g. the JAX package's
-    KSSetup arrays), so the SCF can be compared apart from the setup."""
+    KSSetup arrays), so the SCF can be compared apart from the setup.
+    With eri=None, df_l is the density-fitting factor (nao, nao, naux)."""
     device = _device(device)
     t0 = time.time()
     fn = _functional(functional)
     sys = make_system(hcore, s, eri, ao, weights,
                       ao_grad if fn.needs_grad else None, e_nuc, nocc,
-                      sad_occ=sad_occ, nopen=nopen, device=device)
+                      sad_occ=sad_occ, nopen=nopen, device=device, df_l=df_l,
+                      build_k=fn.hyb_coeff != 0.0)
     ao = np.asarray(ao)
     return KSSetup(sys=sys, functional=fn, nao=ao.shape[1],
                    ngrid=ao.shape[0], nocc=int(nocc),

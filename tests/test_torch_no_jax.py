@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: no JAX and no JAX-package import.
 
 A subprocess with JAX and the JAX package blocked in sys.modules imports
-every module of the port; a source scan of the port, chip_smoke.py and
-the port's tools (tools/torch_*.py) finds no import of either; and no
+every module of the port; a source scan of the port, chip_smoke.py, the
+port's tools (tools/torch_*.py) and the multi-rank tests' rank functions
+(tests/torch_parallel_ranks.py) finds no import of either; and no
 string in the port's code (docstrings aside, which cite the modules each
 one ports) names a path inside the JAX package, so nothing there is read
 or built at run time (the port keeps its own copies, such as
@@ -38,7 +39,9 @@ def test_port_imports_without_jax():
     mods = _port_modules()
     assert len(mods) > 20, mods
     for name in ("runtime.ffi", "runtime.native_scf", "setup_cache",
-                 "utils.profiling"):
+                 "utils.profiling", "parallel", "parallel.mesh",
+                 "parallel.sharded", "parallel.sharded_scf",
+                 "parallel.launch"):
         assert f"{PKG}.{name}" in mods
     code = (
         "import sys\n"
@@ -73,7 +76,10 @@ def test_source_scan_finds_no_jax_import():
     assert os.path.join(ROOT, "tools", "torch_run_all_molecules.py") in tools
     assert os.path.join(ROOT, "tools", "torch_northstar.py") in tools
     assert os.path.join(ROOT, "tools", "torch_kernel_timing.py") in tools
+    assert os.path.join(ROOT, "tools", "torch_northstar_mesh.py") in tools
     files += tools
+    # the rank functions of the multi-rank tests (spawned ranks import it)
+    files.append(os.path.join(ROOT, "tests", "torch_parallel_ranks.py"))
     assert len(files) > 20
     bad = []
     for path in files:

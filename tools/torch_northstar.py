@@ -58,10 +58,11 @@ GRID_LEVEL = 1
 CACHE = os.path.join(ROOT, ".cache")
 
 
-def _factor(basis, mol_name: str, cd_tol: float, device, cache: bool):
+def _factor(basis, mol_name: str, cd_tol: float, device, cache: bool,
+            cache_dir: str | None = None):
     """-> (L (nao, nao, rank) on `device`, seconds to build or load it,
-    whether it came from the cache).  cache: load L from CACHE when it is
-    there, and save it there when it is built."""
+    whether it came from the cache).  cache: load L from cache_dir (default
+    CACHE) when it is there, and save it there when it is built."""
     import numpy as np
     import torch
 
@@ -72,7 +73,9 @@ def _factor(basis, mol_name: str, cd_tol: float, device, cache: bool):
         synced_time,
     )
 
-    path = os.path.join(CACHE, f"northstar_L_{mol_name}_tol{cd_tol:g}.npz")
+    cache_dir = cache_dir or CACHE
+    path = os.path.join(cache_dir,
+                        f"northstar_L_{mol_name}_tol{cd_tol:g}.npz")
     t0 = synced_time(device)
     if cache and os.path.exists(path):
         l_vec = torch.as_tensor(np.load(path)["l_vec"], device=device)
@@ -82,7 +85,7 @@ def _factor(basis, mol_name: str, cd_tol: float, device, cache: bool):
                                  verbose=True)
     t_cd = synced_time(device) - t0
     if cache:
-        os.makedirs(CACHE, exist_ok=True)
+        os.makedirs(cache_dir, exist_ok=True)
         tmp = path + ".tmp.npz"
         np.savez(tmp, l_vec=l_vec.cpu().numpy(), cd_tol=cd_tol)
         os.replace(tmp, path)
