@@ -107,6 +107,24 @@ raises and the script exits non-zero without the final line):
         cycle printed.  After the last step every rank's density equals rank
         0's bit for bit.  The sharded path runs the f64 engine, as the JAX
         package's does: the ranks' K1/K2 launches are printed (0 expected)
+     h. the basis generators and the tools: atomic_energy (atomic HF,
+        basis/atomic_scf.py) on the card for O, Cu, Se and I within
+        ATOMIC_TOL of the JAX package's CPU values
+        (docs/atomic_reference_cpu.json, tools/atomic_reference.py), with
+        seconds per call; optimize_zetas for O and for Cu (4sp frozen)
+        within ZETA_RTOL of the same file's zetas, each trial energy and
+        trial zeta of its path (tools/optimizer_trace.py) within
+        ATOMIC_TOL and ZETA_RTOL of the CPU run's (else the first
+        evaluation at which they part is printed and the phase fails),
+        O also within 1.5% of the published 7.66 / 2.25;
+        tools/torch_oracle_diffs.py's rows H2O/B3LYP, H2Se/B3LYP
+        (in-core) and Benzene/B3LYP (Cholesky DF) on the fast schedule
+        against the C++ engine, and its DHA grid-1 fixed-density E_xc/V_xc
+        through the f64 engine and K1; two rows of the 57-molecule sweep
+        at full size through tools/torch_run_all_molecules.run_one,
+        Lysergide (nao 145) and Hexachlorobenzene (nao 84) B3LYP grid 3,
+        within SWEEP_TOL of docs/results_58_r5.json; K1 launched at least
+        once (its tools_launches)
   5. the variant sweep (tools/torch_xc_sweep.py, in process) at DHA grid 3
      with the launch counts set to 0 just before it: one JSON line per
      variant, one launch of each variant's kernel per kernel call it made,
@@ -187,6 +205,18 @@ JIT_TOL = 1e-9
 # tool's BUILDERS_TOL
 MESH_LOOP_TOL = 5e-9
 MESH_D_TOL = 1e-9
+# phase 4h: atomic energies on the card against the JAX package's CPU
+# values, the optimized zetas (relative), the O zetas against the
+# published 1s 7.66 / 2sp 2.25 (basis/zeta_optimized.py), and the sweep
+# rows against docs/results_58_r5.json (tools/compare_sweeps.py's parity)
+ATOMIC_REF = os.path.join(HERE, "docs", "atomic_reference_cpu.json")
+ATOMIC_TOL = 1e-9
+ZETA_RTOL = 1e-8
+O_PUBLISHED = {"1s": 7.66, "2sp": 2.25}
+O_PUBLISHED_RTOL = 0.015
+SWEEP_REF = os.path.join(HERE, "docs", "results_58_r5.json")
+SWEEP_TOL = 2e-6
+SWEEP_ROWS = ("Lysergide", "Hexachlorobenzene")
 # phase 4c's electronic temperature (Eh): that of the golden table's six
 # smeared rows (tools/gen_golden.py's ladder)
 FON_KT = 0.2
@@ -1178,6 +1208,109 @@ def phase_mesh():
     return total
 
 
+def _parting(trace, ref_trace):
+    """The first optimizer evaluation at which the card's trial zetas or
+    energy leave the CPU run's -> a message, or None."""
+    for i, ((z, e), (zr, er)) in enumerate(zip(trace, ref_trace)):
+        if z.keys() != zr.keys() or any(
+                abs(z[k] / zr[k] - 1.0) >= ZETA_RTOL for k in z):
+            return f"evaluation {i}: trial zetas {z} vs {zr}"
+        if abs(e - er) >= ATOMIC_TOL:
+            return f"evaluation {i} at {z}: E {e!r} vs {er!r}"
+    if len(trace) != len(ref_trace):
+        return f"{len(trace)} evaluations vs {len(ref_trace)}"
+    return None
+
+
+def phase_tools(dev):
+    """4h: the basis generators, the oracle rows and two sweep rows, with
+    the launch counts set to 0 just before and read just after; returns
+    them."""
+    import torch
+
+    from quantum_compute_dft_tpu_torch.basis import atomic_scf
+    from quantum_compute_dft_tpu_torch.engine import fused_xc
+    from quantum_compute_dft_tpu_torch.runtime import build_library
+
+    import torch_oracle_diffs as oracle
+    import torch_run_all_molecules as sweep_tool
+    from optimizer_trace import optimize_traced
+
+    t0 = time.time()
+    with open(ATOMIC_REF) as f:
+        ref = json.load(f)
+    with open(SWEEP_REF) as f:
+        sweep_ref = json.load(f)
+    _reset_launches()
+    bad = []
+    for sym in ("O", "Cu", "Se", "I"):
+        t1 = time.time()
+        e = atomic_scf.atomic_energy(sym, device=dev)
+        torch.cuda.synchronize()
+        de = e - ref["energies"][sym]["e"]
+        print(f"  atomic_energy {sym}: E={e:.12f} dE_cpu={de:+.2e} "
+              f"({1e3 * (time.time() - t1):.1f} ms)", flush=True)
+        if not abs(de) < ATOMIC_TOL:
+            bad.append(f"atomic_energy {sym} dE {de}")
+    for sym, frozen in (("O", ()), ("Cu", ("4sp",))):
+        t1 = time.time()
+        zetas, e, trace = optimize_traced(atomic_scf, sym,
+                                          frozen_shells=frozen, device=dev)
+        r = ref["optimize"][sym]
+        rel = max(abs(zetas[k] / r["zetas"][k] - 1.0) for k in r["zetas"])
+        msg = (f"  optimize_zetas {sym} (frozen {list(frozen)}): {zetas} "
+               f"E={e:.12f} dE_cpu={e - r['e']:+.2e} max rel dzeta "
+               f"{rel:.1e}, {len(trace)} evaluations "
+               f"({time.time() - t1:.2f} s)")
+        part = _parting(trace, r["trace"])
+        if part:
+            msg += f"; first parting from the CPU run: {part}"
+            bad.append(f"optimize_zetas {sym} parts from the CPU run: {part}")
+        print(msg, flush=True)
+        if not (rel < ZETA_RTOL and abs(e - r["e"]) < ATOMIC_TOL):
+            bad.append(f"optimize_zetas {sym}: {zetas} vs {r['zetas']}")
+        if sym == "O" and any(abs(zetas[k] / z - 1.0) >= O_PUBLISHED_RTOL
+                              for k, z in O_PUBLISHED.items()):
+            bad.append(f"O zetas {zetas} vs published {O_PUBLISHED}")
+    build_library()
+    for name, fn, df in (("H2O", "B3LYP", False), ("H2Se", "B3LYP", False),
+                         ("Benzene", "B3LYP", True)):
+        r = oracle.scf_row(name, fn, df, "fast", dev)
+        print(f"  oracle {name}/{fn}{' DF' if df else ''} fast: dE_stat "
+              f"{r['de']:.2e} (bar {r['tol']:g}), cycles {r['cycles']} "
+              f"(kernel {r['fast_cycles']}), native {r['native_cycles']} "
+              f"({r['seconds']:.2f} s)", flush=True)
+        if not r["within"]:
+            bad.append(f"oracle {name}/{fn}: {r}")
+    for r in oracle.dha_rows(dev):
+        print(f"  oracle DHA/B3LYP fixed density, {r['engine']}: dE_xc "
+              f"{r['de_xc']:.2e} max dV {r['dv_xc']:.2e} (ngrid "
+              f"{r['ngrid']})", flush=True)
+        if not r["within"]:
+            bad.append(f"oracle DHA {r['engine']}: {r}")
+    for name in SWEEP_ROWS:
+        row = sweep_tool.run_one(name, "B3LYP", 3, "fast", dev)
+        e_ref = sweep_ref[f"{name}/B3LYP"]["e_tot"]
+        de = row["e_tot"] - e_ref
+        print(f"  sweep {name}/B3LYP nao={row['nao']} ngrid={row['ngrid']}:"
+              f" converged={row['converged']} cycles={row['n_iter']} (kernel"
+              f" {row['fast_cycles']}) E={row['e_tot']:.10f} dE_r5={de:+.2e} "
+              f"setup {row['setup_s']:.2f} s SCF {row['scf_s']:.2f} s",
+              flush=True)
+        if not (row["converged"] and abs(de) <= SWEEP_TOL):
+            bad.append(f"sweep {name}: dE {de}")
+    launches = dict(fused_xc.LAUNCHES)
+    if launches["K1"] < 1:
+        bad.append(f"K1 launched {launches['K1']} times")
+    if bad:
+        raise AssertionError(f"4h: {bad}")
+    _phase("4h basis generators and tools", t0, f"atomic energies within "
+           f"{ATOMIC_TOL:g} Eh and zetas within {ZETA_RTOL:g} of the CPU; "
+           f"oracle rows within their bars; sweep rows within {SWEEP_TOL:g};"
+           f" launches {launches}")
+    return launches
+
+
 def phase_sweep():
     """The variant sweep's entry point at DHA grid 3, in process, with the
     launch counts set to 0 just before and read just after; returns them."""
@@ -1230,6 +1363,7 @@ def main() -> int:
     phase_northstar(dev, rec)
     cli = phase_cli(dev)
     phase_mesh()
+    tools = phase_tools(dev)
     sweep = phase_sweep()
 
     kernels = []
@@ -1239,7 +1373,8 @@ def main() -> int:
         if kid in ("K1", "K2"):  # the SCF's kernels: the main paths' counts
             entry.update(launches=df[kid], incore_launches=incore[kid],
                          fon_launches=fon[kid], ri_launches=ri[kid],
-                         cli_launches=cli[kid], sweep_launches=sweep[kid])
+                         cli_launches=cli[kid], tools_launches=tools[kid],
+                         sweep_launches=sweep[kid])
         else:
             entry["launches"] = sweep[kid]
         if entry["launches"] < 1:

@@ -41,7 +41,7 @@ def test_port_imports_without_jax():
     for name in ("runtime.ffi", "runtime.native_scf", "setup_cache",
                  "utils.profiling", "parallel", "parallel.mesh",
                  "parallel.sharded", "parallel.sharded_scf",
-                 "parallel.launch"):
+                 "parallel.launch", "basis.atomic_scf", "basis.stong_fit"):
         assert f"{PKG}.{name}" in mods
     code = (
         "import sys\n"
@@ -77,7 +77,13 @@ def test_source_scan_finds_no_jax_import():
     assert os.path.join(ROOT, "tools", "torch_northstar.py") in tools
     assert os.path.join(ROOT, "tools", "torch_kernel_timing.py") in tools
     assert os.path.join(ROOT, "tools", "torch_northstar_mesh.py") in tools
+    for name in ("optimize_heavy_zetas", "apply_optimized_zetas",
+                 "zeta_sensitivity", "oracle_diffs", "grid_error_study",
+                 "import_basis", "results_md", "atomic_timing"):
+        assert os.path.join(ROOT, "tools", f"torch_{name}.py") in tools
     files += tools
+    # the optimizer's trace helper, which chip_smoke.py imports
+    files.append(os.path.join(ROOT, "tools", "optimizer_trace.py"))
     # the rank functions of the multi-rank tests (spawned ranks import it)
     files.append(os.path.join(ROOT, "tests", "torch_parallel_ranks.py"))
     assert len(files) > 20

@@ -3,14 +3,16 @@
     import torch_kernel_timing as kt
     ms = kt.cuda_ms(fn)                       # median of 25 CUDA-event calls
     bound_ms, by, *_ = kt.xc_bound("K1", needs_grad=True, n=152, npts=npts)
+    head = kt.card("cuda")      # {"device", "gpu", "power_limit", ...}
 
-Shared by chip_smoke.py and tools/torch_northstar.py.  Imports torch only
-inside cuda_ms.
+Shared by chip_smoke.py and the port's tools.  Imports torch only inside
+cuda_ms and card.
 """
 
 from __future__ import annotations
 
 import statistics
+import subprocess
 
 # the card's peaks for the bounds (H100 SXM data sheet, 700 W): HBM bytes/s
 # and the TF32 tensor-core rate, at which the product FLOPs are counted;
@@ -37,6 +39,26 @@ def cuda_ms(fn, reps: int = 25, warm: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def card(device: str) -> dict:
+    """The device a tool runs on, for its output's header: on cuda the
+    card's name and power limit as nvidia-smi gives them (and SystemExit
+    when there is no CUDA device: the CPU runs only when asked for)."""
+    import torch
+
+    head = {"device": device, "gpu": None, "power_limit": None,
+            "torch": torch.__version__}
+    if device == "cpu":
+        return head
+    if not torch.cuda.is_available():
+        raise SystemExit(f"no CUDA device for --device {device}; "
+                         "--device cpu runs on the CPU")
+    name, power = (x.strip() for x in subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.splitlines()[0].split(","))
+    return dict(head, gpu=name, power_limit=power, cuda=torch.version.cuda)
 
 
 def xc_bound(kid: str, needs_grad: bool, n: int, npts: int):

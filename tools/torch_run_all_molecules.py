@@ -27,11 +27,16 @@ table's temperature, finish_integer=False and the damped-mixing mixer
 (`recheck`, see RECHECK_MIXER): the ladder's result depends on which rungs
 converge, and that rerun holds the energy at the table's temperature.
 
-Output: {"header": {...}, "rows": {"MOL/FN": row}}, rewritten after each
-row; a rerun with the same OUT skips the rows it holds (resume).  Each row
-has setup_s and scf_s (host clock, ending in a device sync), the cycles
-(n_iter, kernel-phase fast_cycles, verify_cycles, and the integer attempt's
-when the ladder ran), and smear_kt.  --device cpu runs on the CPU, for
+Output, rewritten after each row: with --golden {"header": {...},
+"rows": {"MOL/FN": row}}; without, the sweep layout of
+tools/run_all_molecules.py ({"MOL/FN": row}, as docs/results_58_r5.json,
+which tools/compare_sweeps.py and tools/torch_results_md.py read) with the
+header as one more key, "header".  A rerun with the same OUT skips the
+rows it holds (resume).  Each row has setup_s and scf_s (host clock,
+ending in a device sync), the setup cache's hits (cache_hits;
+DFT_SETUP_CACHE=0 makes every setup cold), the basis provenance, the
+cycles (n_iter, kernel-phase fast_cycles, verify_cycles, and the integer
+attempt's when the ladder ran), and smear_kt.  --device cpu runs on the CPU, for
 tests; on the card the header holds nvidia-smi's name and power limit.
 Imports nothing of JAX.
 """
@@ -43,17 +48,18 @@ import gc
 import hashlib
 import json
 import os
-import subprocess
 import sys
 import time
 import warnings
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
+sys.path[:0] = [ROOT, os.path.join(ROOT, "tools")]
 
 import torch  # noqa: E402
+import torch_kernel_timing as kt  # noqa: E402
 
 from quantum_compute_dft_tpu_torch import kohn_sham  # noqa: E402
+from quantum_compute_dft_tpu_torch.basis.data import provenance  # noqa: E402
 from quantum_compute_dft_tpu_torch.mol import from_xyz_file  # noqa: E402
 from quantum_compute_dft_tpu_torch.scf.driver import (  # noqa: E402
     ANNEAL_KTS,
@@ -119,6 +125,8 @@ def run_one(name: str, functional: str, grid_level: int, xc_impl: str,
     r = scf_host(s, fn, xc_impl=xc_impl)
     row = {"molecule": name, "functional": functional,
            "natom": len(mol.symbols), "nao": setup.nao, "ngrid": setup.ngrid,
+           "basis_provenance": sorted({provenance(x) for x in mol.symbols}),
+           "cache_hits": list(setup.cache_hits),
            "density_fit": s.eri is None, "grid_level": grid_level,
            "xc_impl": xc_impl, "ladder": not r.converged}
     if not r.converged:
@@ -193,27 +201,21 @@ def main(argv=None) -> dict:
     args = p.parse_args(argv)
 
     dev = torch.device(args.device)
-    gpu = power = None
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise SystemExit("torch_run_all_molecules: no CUDA device; "
-                             "--device cpu runs on the CPU")
-        gpu, power = (x.strip() for x in subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True).stdout.splitlines()[0].split(","))
     with open(GOLDEN) as f:
         tol = json.load(f)["tolerance"]
-    header = {"tool": "tools/torch_run_all_molecules.py",
-              "mode": "golden" if args.golden else "sweep",
-              "xc_impl": args.xc_impl, "device": args.device, "gpu": gpu,
-              "power_limit": power, "torch": torch.__version__,
-              "cuda": torch.version.cuda, "commit": args.commit,
-              "sources_sha256": _sources_sha256(), "tolerance": tol}
+    header = dict(kt.card(args.device),
+                  tool="tools/torch_run_all_molecules.py",
+                  mode="golden" if args.golden else "sweep",
+                  xc_impl=args.xc_impl, cuda=torch.version.cuda,
+                  commit=args.commit, sources_sha256=_sources_sha256(),
+                  tolerance=tol)
     results = {"header": header, "rows": {}}
     if os.path.exists(args.out):
         with open(args.out) as f:
             results = json.load(f)
+        if "rows" not in results:    # the sweep layout
+            old = results.pop("header")
+            results = {"header": old, "rows": results}
         old = results["header"]
         if (old["mode"], old["xc_impl"]) != (header["mode"], args.xc_impl):
             raise SystemExit(f"{args.out} holds {old['mode']} rows of "
@@ -234,7 +236,9 @@ def main(argv=None) -> dict:
         print(f"{key}: {time.time() - t0:.1f} s", flush=True)
         tmp = args.out + ".tmp"
         with open(tmp, "w") as f:
-            json.dump(results, f, indent=1, sort_keys=True)
+            json.dump(results if args.golden else
+                      {"header": results["header"], **results["rows"]},
+                      f, indent=1, sort_keys=True)
         os.replace(tmp, args.out)
         # free the row's setup (ERIs, AO planes, packed planes) before
         # the next one
