@@ -1,8 +1,10 @@
 // Fused f32 XC build (E_xc, V_xc) for Hopper (sm_90a): kernels K1 (GGA body:
 // PBE, B3LYP) and K2 (LDA body: LDA, and HF through the zero functional), K3
-// (either body with phi_D on bf16 tensor cores, the TPU kernel's phi_split)
-// and the ablation and reduction variants, which run on the four-kernel
-// pipeline that was K1's design until it was redesigned (K1base below).
+// (either body with phi_D as the 3-pass bf16 split, the TPU kernel's
+// phi_split) and the ablation phi3 (K3's GGA body) on K1's and K2's kernels,
+// and the other ablation and reduction variants, which run on the
+// four-kernel pipeline that was K1's design until it was redesigned (K1base
+// below).
 //
 // Replaces quantum_compute_dft_tpu/engine/pallas_xc.py::_make_kernel (entered
 // through xc_step_pallas_packed / xc_step_pallas).  Same arithmetic, not the
@@ -17,8 +19,9 @@
 //   V   = AO B ;  V_out = (V + V^T) / 2
 //
 // The four-kernel pipeline: K1base (the GGA body as K1 ran it before its
-// redesign, kept as the base the ablations are timed against), K3 and the
-// variants.  What bounds them on this card: two products of 2 npad^2 FLOPs per point
+// redesign, kept as the base the ablations are timed against), the
+// ablations nophi, noprod, nofunc and nov, split2, and K3 with split2.
+// What bounds them on this card: two products of 2 npad^2 FLOPs per point
 // (phi_D and V) in plain FP32 FMA (K3: phi_D on bf16 tensor cores): at DHA
 // (npad 152, ~635k points) ~29 GFLOP each against 67 TFLOP/s of FP32 FMA;
 // the planes are ~0.4 GB (AO + 3 gradients) plus phi_D / B^T written and
@@ -39,7 +42,7 @@
 //      chunk's AO . B (same register tiling as kernel 1).
 //   4. xc_reduce_kernel: sums the chunk partials in chunk order and
 //      symmetrizes; one extra block sums the E partials in a fixed order.
-//   K3 replaces kernel 1 with xc_phi_split_kernel: the same 64 x 64 tiles,
+//   K3 with split2 replaces kernel 1 with xc_phi_split_kernel: 64 x 64 tiles,
 //   but D and the AO tile are split into bf16 hi + lo while they are staged
 //   and phi_D = D_h AO_h + D_h AO_l + D_l AO_h runs on the tensor cores
 //   (mma.sync m16n8k16, f32 accumulation); see its note.
@@ -111,6 +114,24 @@
 // the fold, and its V kernel moves four planes.  wgmma,
 // which reads both operands from shared memory, is the next step for V
 // (both operands are K-major, as tf32 wgmma needs).
+//
+// K3 (either body, pallas_xc.py:157-161 at :225 and :281) and phi3 (:221-
+// 223) compute phi_D as mm_phi does, D_h AO_h + D_h AO_l + D_l AO_h with hi
+// = bf16(x), lo = bf16(x - hi) (round to nearest) and D_l AO_l dropped, and
+// everything after phi_D as K1 and K2.  On the old pipeline they wrote a
+// phi_D plane, overwrote it with B^T and read it again in FP32 FMA V tiles
+// (4.0-4.8 ms at DHA).  Now they are K1's and K2's kernels with the rho
+// kernels' product in a second mode (template MODE, kBf16x3; fused_xc_tc's
+// mode argument): xc_split_dm_kernel splits the f32 density once per call
+// into bf16 hi and lo planes (in the bytes of the f32 copy), which the rho
+// kernel stages as K1 stages D; the AO tile stays f32 in shared memory (the
+// fold reads it) at row stride 68, and its A fragments, pairs of nu rows,
+// are split at load (cvt.rn.bf16x2).  Each k16 step is three m16n8k16 bf16
+// mma where 3 x TF32 takes six m16n8k8, and the B fragments are single
+// 32-bit loads with no split; f32 accumulators, per-stage partial sums
+// (stage_fma's reason).  A last half step (npad % 16 == 8) zeroes the upper
+// fragments.  No phi_D or B^T plane exists.  The f32 V of the plain version
+// is computed as K1's and K2's 3 x TF32 V.
 //
 // No float atomics anywhere: every sum runs in the same order on every call,
 // so SCF trajectories are reproducible run to run.  The chunks (the wrapper's
@@ -333,7 +354,7 @@ xc_phi_split_kernel(int npad, int gpad, const float* __restrict__ dm,
 // ---- K1 and K2 on TF32 tensor cores (xc_rho_kernel, xc_rho_res_kernel,
 // xc_lda_v_kernel, xc_gga_v_kernel; the design is in the header note) ----
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
 }
@@ -416,6 +437,16 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 
 constexpr int kRhoCols = 64;                 // grid points of a rho column tile
 constexpr int kRhoColStride = kRhoCols + 8;  // AO tile row stride (floats)
+// The rho kernels' product modes (fused_xc_tc's mode): 3 x TF32 on
+// m16n8k8 (K1, K2), or the 3-pass bf16 split on m16n8k16 (K3 and phi3:
+// pallas_xc.py's mm_phi).  The bf16 A fragment pairs two nu rows of the AO
+// tile, so its row stride is 68 (a warp's loads at rows 2t, 2t + 1 hit
+// banks 8t + g) where TF32's single rows want 72.
+constexpr int kTf32x3 = 0;
+constexpr int kBf16x3 = 1;
+__host__ __device__ constexpr int rho_col_stride(int mode) {
+  return mode == kBf16x3 ? kRhoCols + 4 : kRhoColStride;
+}
 constexpr int kRhoNb = 5;                    // n8 (mu) tiles per warp per pass
 constexpr int kRhoPass = 4 * kRhoNb;         // n8 tiles per pass (four warp columns)
 constexpr int kSlabStride = kTk + 4;         // row stride of 32-deep k slabs
@@ -463,17 +494,34 @@ __host__ __device__ inline int rho_pass_tiles(int npad) {
   return (ntn + npass - 1) / npass;
 }
 
+// one ring stage of the streaming rho kernel's D slabs, in floats: per * 8
+// rows of 32 nu at stride 36 floats (TF32), or the hi and lo rows at stride
+// 40 bf16 (20 words: a warp's B fragment pairs hit banks 20 g + t)
+__host__ __device__ inline size_t rho_slab_floats(int npad, int mode) {
+  return (size_t)rho_pass_tiles(npad) * 8 *
+         (mode == kBf16x3 ? kTkSplit : kSlabStride);
+}
+
 // streaming rho kernel: the AO tile and a ring of D slabs
-__host__ __device__ inline size_t rho_smem(int npad) {
-  return sizeof(float) * ((size_t)npad * kRhoColStride +
-                          kRhoStages * (size_t)rho_pass_tiles(npad) * 8 * kSlabStride);
+__host__ __device__ inline size_t rho_smem(int npad, int mode) {
+  return sizeof(float) * ((size_t)npad * rho_col_stride(mode) +
+                          kRhoStages * rho_slab_floats(npad, mode));
+}
+
+// the resident bf16 planes' row stride (bf16): (npad / 2) | 4 words, = 4 mod
+// 8, so a warp's B fragment pairs hit 32 distinct banks
+__host__ __device__ constexpr int rho_res_bf16_stride(int npad) {
+  return 2 * ((npad / 2) | 4);
 }
 
 // resident-D rho kernel: D at row stride npad + 4 (= 4 mod 8: a warp's B
-// fragment loads hit 32 distinct banks) and one AO tile per group
-__host__ __device__ inline size_t rho_res_smem(int npad) {
-  return sizeof(float) * ((size_t)npad * (npad + 4) +
-                          2 * (size_t)npad * kRhoColStride);
+// fragment loads hit 32 distinct banks), or its hi and lo planes at
+// rho_res_bf16_stride (as many bytes a row within 16), and one AO tile per
+// group
+__host__ __device__ inline size_t rho_res_smem(int npad, int mode) {
+  const size_t d = mode == kBf16x3 ? (size_t)npad * rho_res_bf16_stride(npad)
+                                   : (size_t)npad * (npad + 4);
+  return sizeof(float) * (d + 2 * (size_t)npad * rho_col_stride(mode));
 }
 
 __host__ __device__ inline size_t lda_v_smem(int npad) {
@@ -586,13 +634,101 @@ __device__ __forceinline__ void rho_stage(const float* pa, const float* pb,
       for (int r = 0; r < 4; ++r) acc[i][j][r] += s[i][j][r];
 }
 
+// (x0, x1) -> the bf16 pairs hi = bf16(x) and lo = bf16(x - hi), x0 in the
+// low halves, both round-to-nearest-even (cvt.rn.bf16x2: split_bf16's
+// rounding, the plain version's _split); hi back in f32 is its bits << 16
+__device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi,
+                                             uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  const __nv_bfloat162 l =
+      __floats2bfloat162_rn(x0 - __uint_as_float(hi << 16),
+                            x1 - __uint_as_float(hi & 0xffff0000u));
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// s += phi_D^T over one k16 step of the 3-pass bf16 split (K3, phi3),
+// AO_h D_l + AO_l D_h + AO_h D_h with D_l AO_l dropped, as mm_phi: the A
+// fragments (16 points x 16 nu) from the f32 AO tile split at load (pa =
+// &ao_s[kk + 2t][p0], row stride CS); the B fragments, pairs along nu,
+// from the split D planes (pbh / pbl = &D_h / &D_l[mu of the warp's first
+// n8 tile + g][kk + 2t], row stride bs).  Each pass over all of the warp's
+// tiles before the next (mma_tf32's note).  kHalf: only nu kk .. kk + 7
+// are in range (the last step when npad % 16 == 8); the upper half's
+// fragments are zero and nothing beyond is read.
+template <int CS, bool kHalf>
+__device__ __forceinline__ void rho_k16(const float* pa,
+                                        const __nv_bfloat16* pbh,
+                                        const __nv_bfloat16* pbl, int bs,
+                                        int mine,
+                                        float (&s)[2][kRhoNb][4]) {
+  uint32_t ah[2][4], al[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float* a = pa + 16 * i;
+    split_bf16x2(a[0], a[CS], ah[i][0], al[i][0]);
+    split_bf16x2(a[8], a[CS + 8], ah[i][1], al[i][1]);
+    if constexpr (kHalf) {
+      ah[i][2] = al[i][2] = ah[i][3] = al[i][3] = 0u;
+    } else {
+      split_bf16x2(a[8 * CS], a[9 * CS], ah[i][2], al[i][2]);
+      split_bf16x2(a[8 * CS + 8], a[9 * CS + 8], ah[i][3], al[i][3]);
+    }
+  }
+  uint32_t bh[kRhoNb][2];
+#pragma unroll
+  for (int j = 0; j < kRhoNb; ++j) {
+    if (j < mine) {
+      const int o = j * 8 * bs;
+      bh[j][0] = ld_pair(pbh + o);
+      bh[j][1] = kHalf ? 0u : ld_pair(pbh + o + 8);
+      const uint32_t bl[2] = {ld_pair(pbl + o), kHalf ? 0u : ld_pair(pbl + o + 8)};
+      mma_bf16(s[0][j], ah[0], bl);
+      mma_bf16(s[1][j], ah[1], bl);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kRhoNb; ++j)
+    if (j < mine) {
+      mma_bf16(s[0][j], al[0], bh[j]);
+      mma_bf16(s[1][j], al[1], bh[j]);
+    }
+#pragma unroll
+  for (int j = 0; j < kRhoNb; ++j)
+    if (j < mine) {
+      mma_bf16(s[0][j], ah[0], bh[j]);
+      mma_bf16(s[1][j], ah[1], bh[j]);
+    }
+}
+
+// rho_stage's bf16 counterpart: acc += phi_D^T over one stage of kw <= 32
+// nu (a multiple of 8), k16 steps and a last half step, summed apart
+template <int CS>
+__device__ __forceinline__ void rho_stage_bf16(const float* pa,
+                                               const __nv_bfloat16* pbh,
+                                               const __nv_bfloat16* pbl,
+                                               int bs, int kw, int mine,
+                                               float (&acc)[2][kRhoNb][4]) {
+  float s[2][kRhoNb][4] = {};
+  int kk = 0;
+  for (; kk + 16 <= kw; kk += 16)
+    rho_k16<CS, false>(pa + kk * CS, pbh + kk, pbl + kk, bs, mine, s);
+  if (kk < kw) rho_k16<CS, true>(pa + kk * CS, pbh + kk, pbl + kk, bs, mine, s);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < kRhoNb; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] += s[i][j][r];
+}
+
 // q += the sums over a finished pass's mu, from the accumulators (fragment
 // rows mu0 + 8 j, mu0 = 8 (pass base + first) + 2 t; points p0 + 16 i (+ 8)):
 // q[0] of phi_D AO against the staged AO tile, and (GGA) q[1 + k] of phi_D
 // dAO_k, read once from the gradient planes at the fragment positions (the
 // lanes of a row group read 8 consecutive points: whole 32-byte sectors).
 // go: the offset of (row 0, point p0 of the tile) in the planes.
-template <int NQ>
+template <int NQ, int CS>
 __device__ __forceinline__ void rho_fold(const float* ao_s, int p0, int mu0,
                                          int mine,
                                          const float (&acc)[2][kRhoNb][4],
@@ -601,8 +737,8 @@ __device__ __forceinline__ void rho_fold(const float* ao_s, int p0, int mu0,
 #pragma unroll
   for (int j = 0; j < kRhoNb; ++j) {
     if (j < mine) {
-      const float* a0 = ao_s + (size_t)(mu0 + 8 * j) * kRhoColStride + p0;
-      const float* a1 = a0 + kRhoColStride;
+      const float* a0 = ao_s + (size_t)(mu0 + 8 * j) * CS + p0;
+      const float* a1 = a0 + CS;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         q[0][i][0] += acc[i][j][0] * a0[16 * i] + acc[i][j][1] * a1[16 * i];
@@ -651,8 +787,9 @@ __device__ __forceinline__ void rho_pass_store(float (&q)[NQ][2][2],
       }
 }
 
-// One pass of the rho body: fold the accumulators and store the sums
-template <int NQ>
+// One pass of the rho body: fold the accumulators and store the sums (CS:
+// the AO tile's row stride)
+template <int NQ, int CS>
 __device__ __forceinline__ void rho_pass_end(const float* ao_s, int p0,
                                              int mu0, int mine,
                                              const float (&acc)[2][kRhoNb][4],
@@ -661,7 +798,7 @@ __device__ __forceinline__ void rho_pass_end(const float* ao_s, int p0,
                                              float (*red_s)[4][kRhoCols],
                                              int wn, int t, bool first_pass) {
   float q[NQ][2][2] = {};
-  rho_fold<NQ>(ao_s, p0, mu0, mine, acc, gp, go, gpad, q);
+  rho_fold<NQ, CS>(ao_s, p0, mu0, mine, acc, gp, go, gpad, q);
   rho_pass_store<NQ>(q, red_s, wn, t, p0, first_pass);
 }
 
@@ -715,21 +852,25 @@ __device__ __forceinline__ void rho_finish(float (*red_s)[4][kRhoCols],
 // xc_rho_kernel (streaming D, any npad <= 384): one block of 8 warps per
 // column tile.  D streams through a ring of 3 slabs (cp.async, loads issued
 // 2 stages ahead; slab rows = the pass's mu, stride 36: B fragment loads hit
-// banks 4g + t); the AO rows of each 32-deep stage arrive with the first
-// pass's slab and stay, for the later passes and the epilogue.  npad 384
-// takes 3 passes, npad <= 160 one.
-template <int KIND>
+// banks 4g + t; in the bf16 mode the hi and lo rows, rho_slab_floats); the
+// AO rows of each 32-deep stage arrive with the first pass's slab and stay,
+// for the later passes and the epilogue.  npad 384 takes 3 passes, npad <=
+// 160 one.  MODE: the product (kTf32x3: dm is the f32 padded density;
+// kBf16x3: dm holds its bf16 hi and lo planes, xc_split_dm_kernel).
+template <int KIND, int MODE = kTf32x3>
 __global__ void __launch_bounds__(256, 2)
 xc_rho_kernel(int npad, int gpad, const float* __restrict__ dm,
               const float* __restrict__ aot, GradPlanes gp,
               const float* __restrict__ wt, float* __restrict__ s_out,
               float* __restrict__ u_out, float* __restrict__ e_part) {
   constexpr int NQ = rho_nq(KIND);
+  constexpr int CS = rho_col_stride(MODE);
   extern __shared__ __align__(16) float smem[];
   __shared__ float red_s[NQ][4][kRhoCols];
   const int per = rho_pass_tiles(npad);
-  float* ao_s = smem;                                // [npad][72]
-  float* d_s = smem + (size_t)npad * kRhoColStride;  // [3][per * 8][36]
+  const size_t slab = rho_slab_floats(npad, MODE);
+  float* ao_s = smem;                     // [npad][CS]
+  float* d_s = smem + (size_t)npad * CS;  // [3][slab]
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, t = lane % 4;
   const int wm = warp % 2, wn = warp / 2;
@@ -745,18 +886,30 @@ xc_rho_kernel(int npad, int gpad, const float* __restrict__ dm,
     const int base = step / nks * per, k0 = step % nks * kTk;
     const int rows = min(per, ntn - base) * 8;
     const int kw = min(kTk, npad - k0);
-    const int kc = kw / 4;  // 16-byte pieces per D row
-    float* dst = d_s + (step % kRhoStages) * per * 8 * kSlabStride;
-    for (int i = tid; i < rows * kc; i += 256) {
-      const int r = i / kc, c = i % kc * 4;
-      cp_async16(dst + r * kSlabStride + c,
-                 dm + (size_t)(base * 8 + r) * npad + k0 + c);
+    float* dst = d_s + (step % kRhoStages) * slab;
+    if constexpr (MODE == kBf16x3) {
+      // [hi, lo][per * 8][40] bf16 from the two (npad, npad) planes
+      const __nv_bfloat16* src = reinterpret_cast<const __nv_bfloat16*>(dm);
+      __nv_bfloat16* db = reinterpret_cast<__nv_bfloat16*>(dst);
+      const int kc = kw / 8, n = rows * kc;  // 16-byte pieces per plane
+      for (int i = tid; i < 2 * n; i += 256) {
+        const int h = i / n, r = i % n / kc, c = i % kc * 8;
+        cp_async16(db + ((size_t)h * per * 8 + r) * kTkSplit + c,
+                   src + (size_t)h * npad * npad +
+                       (size_t)(base * 8 + r) * npad + k0 + c);
+      }
+    } else {
+      const int kc = kw / 4;  // 16-byte pieces per D row
+      for (int i = tid; i < rows * kc; i += 256) {
+        const int r = i / kc, c = i % kc * 4;
+        cp_async16(dst + r * kSlabStride + c,
+                   dm + (size_t)(base * 8 + r) * npad + k0 + c);
+      }
     }
     if (step < nks) {
       for (int i = tid; i < kw * (kRhoCols / 4); i += 256) {
         const int r = k0 + i / (kRhoCols / 4), c = i % (kRhoCols / 4) * 4;
-        cp_async16(ao_s + r * kRhoColStride + c,
-                   aot + (size_t)r * gpad + col0 + c);
+        cp_async16(ao_s + r * CS + c, aot + (size_t)r * gpad + col0 + c);
       }
     }
   };
@@ -783,55 +936,77 @@ xc_rho_kernel(int npad, int gpad, const float* __restrict__ dm,
 #pragma unroll
           for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
     }
-    const float* db = d_s + (step % kRhoStages) * per * 8 * kSlabStride;
-    rho_stage(ao_s + (size_t)(k0 + t) * kRhoColStride + p0,
-              db + (first * 8 + g) * kSlabStride + t, kSlabStride,
-              min(kTk, npad - k0), mine, acc);
+    const float* db = d_s + (step % kRhoStages) * slab;
+    if constexpr (MODE == kBf16x3) {
+      const __nv_bfloat16* bh = reinterpret_cast<const __nv_bfloat16*>(db) +
+                                (first * 8 + g) * kTkSplit + 2 * t;
+      rho_stage_bf16<CS>(ao_s + (size_t)(k0 + 2 * t) * CS + p0, bh,
+                         bh + (size_t)per * 8 * kTkSplit, kTkSplit,
+                         min(kTk, npad - k0), mine, acc);
+    } else {
+      rho_stage(ao_s + (size_t)(k0 + t) * CS + p0,
+                db + (first * 8 + g) * kSlabStride + t, kSlabStride,
+                min(kTk, npad - k0), mine, acc);
+    }
     if (ks == nks - 1)
-      rho_pass_end<NQ>(ao_s, p0, (base + first) * 8 + 2 * t, mine, acc, gp,
-                       (size_t)col0 + p0, gpad, red_s, wn, t, base == 0);
+      rho_pass_end<NQ, CS>(ao_s, p0, (base + first) * 8 + 2 * t, mine, acc,
+                           gp, (size_t)col0 + p0, gpad, red_s, wn, t,
+                           base == 0);
   }
   rho_finish<KIND>(red_s, tid, blockIdx.x, 0, gpad, wt, s_out, u_out, e_part);
 }
 
-// xc_rho_res_kernel (resident D, npad <= 176 for K2, <= 168 for K1):
-// persistent, one block of two 8-warp groups per SM.  D is staged once per
-// block and stays; each group walks its own column tiles (tile = 2 block +
-// group, then + 2 grid), staging the tile's AO with one cp.async wait and
-// its own barrier, so no barrier or D copy sits inside the product.  Group
-// 0's first tile loads with D, group 1's after, so one group's loads, fold
-// and functional overlap the other's products.  Same products and sums as
-// xc_rho_kernel.
-template <int KIND>
+// xc_rho_res_kernel (resident D, npad <= 176 for K2, <= 168 for K1, in
+// either mode): persistent, one block of two 8-warp groups per SM.  D (or
+// its bf16 hi and lo planes) is staged once per block and stays; each
+// group walks its own column tiles (tile = 2 block + group, then + 2
+// grid), staging the tile's AO with one cp.async wait and its own barrier,
+// so no barrier or D copy sits inside the product.  Group 0's first tile
+// loads with D, group 1's after, so one group's loads, fold and functional
+// overlap the other's products.  Same products and sums as xc_rho_kernel.
+template <int KIND, int MODE = kTf32x3>
 __global__ void __launch_bounds__(kResThreads, 1)
 xc_rho_res_kernel(int npad, int gpad, const float* __restrict__ dm,
                   const float* __restrict__ aot, GradPlanes gp,
                   const float* __restrict__ wt, float* __restrict__ s_out,
                   float* __restrict__ u_out, float* __restrict__ e_part) {
   constexpr int NQ = rho_nq(KIND);
+  constexpr int CS = rho_col_stride(MODE);
   extern __shared__ __align__(16) float smem[];
   __shared__ float red_s[2][NQ][4][kRhoCols];
-  const int ds = npad + 4;
-  const float* d_s = smem;  // [npad][npad + 4]
+  // TF32: D at [npad][npad + 4] floats; bf16: [hi, lo][npad][dsb]
+  const int ds = MODE == kBf16x3 ? rho_res_bf16_stride(npad) : npad + 4;
+  const float* d_s = smem;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int grp = warp / 8, gtid = tid % 256, wl = warp % 8;
   const int g = lane / 4, t = lane % 4;
   const int wm = wl % 2, wn = wl / 2;
   const int p0 = wm * 32 + g;
-  float* ao_s = smem + (size_t)npad * ds + (size_t)grp * npad * kRhoColStride;
+  float* ao_s = smem + (size_t)npad * ds + (size_t)grp * npad * CS;
   const int ntile = gpad / kRhoCols, ntn = npad / 8;
   const int per = rho_pass_tiles(npad);
 
   auto load_ao = [&](int tile) {
     for (int i = gtid; i < npad * (kRhoCols / 4); i += 256) {
       const int r = i / (kRhoCols / 4), c = i % (kRhoCols / 4) * 4;
-      cp_async16(ao_s + r * kRhoColStride + c,
+      cp_async16(ao_s + r * CS + c,
                  aot + (size_t)r * gpad + (size_t)tile * kRhoCols + c);
     }
   };
-  for (int i = tid; i < npad * (npad / 4); i += kResThreads) {
-    const int r = i / (npad / 4), c = i % (npad / 4) * 4;
-    cp_async16(smem + (size_t)r * ds + c, dm + (size_t)r * npad + c);
+  if constexpr (MODE == kBf16x3) {
+    const __nv_bfloat16* src = reinterpret_cast<const __nv_bfloat16*>(dm);
+    __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(smem);
+    const int kc = npad / 8, n = npad * kc;  // 16-byte pieces per plane
+    for (int i = tid; i < 2 * n; i += kResThreads) {
+      const int h = i / n, r = i % n / kc, c = i % kc * 8;
+      cp_async16(dst + ((size_t)h * npad + r) * ds + c,
+                 src + (size_t)h * npad * npad + (size_t)r * npad + c);
+    }
+  } else {
+    for (int i = tid; i < npad * (npad / 4); i += kResThreads) {
+      const int r = i / (npad / 4), c = i % (npad / 4) * 4;
+      cp_async16(smem + (size_t)r * ds + c, dm + (size_t)r * npad + c);
+    }
   }
   int tile = blockIdx.x * 2 + grp;
   if (grp == 0 && tile < ntile) load_ao(tile);
@@ -850,13 +1025,22 @@ xc_rho_res_kernel(int npad, int gpad, const float* __restrict__ dm,
       int first, mine;
       pass_share(min(per, ntn - base), wn, first, mine);
       float acc[2][kRhoNb][4] = {};
-      for (int k0 = 0; k0 < npad; k0 += kTk)
-        rho_stage(ao_s + (size_t)(k0 + t) * kRhoColStride + p0,
-                  d_s + (size_t)((base + first) * 8 + g) * ds + k0 + t, ds,
-                  min(kTk, npad - k0), mine, acc);
-      rho_pass_end<NQ>(ao_s, p0, (base + first) * 8 + 2 * t, mine, acc, gp,
-                       (size_t)tile * kRhoCols + p0, gpad, red_s[grp], wn, t,
-                       base == 0);
+      if constexpr (MODE == kBf16x3) {
+        const __nv_bfloat16* bh = reinterpret_cast<const __nv_bfloat16*>(d_s) +
+                                  (size_t)((base + first) * 8 + g) * ds + 2 * t;
+        for (int k0 = 0; k0 < npad; k0 += kTk)
+          rho_stage_bf16<CS>(ao_s + (size_t)(k0 + 2 * t) * CS + p0, bh + k0,
+                             bh + (size_t)npad * ds + k0, ds,
+                             min(kTk, npad - k0), mine, acc);
+      } else {
+        for (int k0 = 0; k0 < npad; k0 += kTk)
+          rho_stage(ao_s + (size_t)(k0 + t) * CS + p0,
+                    d_s + (size_t)((base + first) * 8 + g) * ds + k0 + t, ds,
+                    min(kTk, npad - k0), mine, acc);
+      }
+      rho_pass_end<NQ, CS>(ao_s, p0, (base + first) * 8 + 2 * t, mine, acc,
+                           gp, (size_t)tile * kRhoCols + p0, gpad,
+                           red_s[grp], wn, t, base == 0);
     }
     rho_finish<KIND>(red_s[grp], gtid, tile, 1 + grp, gpad, wt, s_out, u_out,
                      e_part);
@@ -1436,6 +1620,20 @@ __global__ void xc_pad_dm_kernel(int nao, int npad,
   dm_p[i] = r < nao && c < nao ? (float)dm[(size_t)r * nao + c] : 0.f;
 }
 
+// K3, phi3: the f32 padded density split once per call, into dm_b's hi
+// plane bf16(x) and lo plane bf16(x - hi) ((npad, npad) each, hi first; x =
+// the f64 density rounded to f32, zero beyond nao): the plain version's
+// _pad_dm then _split
+__global__ void xc_split_dm_kernel(int nao, int npad,
+                                   const double* __restrict__ dm,
+                                   __nv_bfloat16* __restrict__ dm_b) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= npad * npad) return;
+  const int r = i / npad, c = i % npad;
+  const float x = r < nao && c < nao ? (float)dm[(size_t)r * nao + c] : 0.f;
+  split_bf16(x, dm_b + i, dm_b + (size_t)npad * npad + i);
+}
+
 template <int KIND>
 __global__ void xc_eval_kernel(int n, const float* __restrict__ rho,
                                const float* __restrict__ sigma,
@@ -1492,15 +1690,15 @@ cudaError_t allow_smem(const void* kernel, size_t bytes, size_t (&done)[64]) {
 }
 
 // The rho pass: resident D where it fits in shared memory beside the
-// kernel's static scratch (npad <= 176 for K2, <= 168 for K1), else
-// streaming D
-template <int KIND>
+// kernel's static scratch (npad <= 176 for K2, <= 168 for K1, in either
+// mode), else streaming D
+template <int KIND, int MODE>
 cudaError_t launch_rho(int npad, int gpad, const float* dm, const float* aot,
                        const GradPlanes& gp, const float* wt, float* s,
                        float* u, float* e_part, cudaStream_t stream) {
   constexpr int NQ = rho_nq(KIND);
   const int ntile = gpad / kRhoCols;
-  size_t smem = rho_res_smem(npad);
+  size_t smem = rho_res_smem(npad, MODE);
   cudaError_t err;
   if (smem <= kBlockSmem - 2 * rho_red_smem(NQ)) {
     static int nsm[64] = {};
@@ -1511,21 +1709,35 @@ cudaError_t launch_rho(int npad, int gpad, const float* dm, const float* aot,
                                    dev);
     static size_t done[64] = {};
     if (err == cudaSuccess)
-      err = allow_smem((const void*)xc_rho_res_kernel<KIND>, smem, done);
+      err = allow_smem((const void*)xc_rho_res_kernel<KIND, MODE>, smem, done);
     if (err != cudaSuccess) return err;
     const int sms = dev < 64 ? nsm[dev] : 132;
     const int nblk = (ntile + 1) / 2 < sms ? (ntile + 1) / 2 : sms;
-    xc_rho_res_kernel<KIND><<<nblk, kResThreads, smem, stream>>>(
+    xc_rho_res_kernel<KIND, MODE><<<nblk, kResThreads, smem, stream>>>(
         npad, gpad, dm, aot, gp, wt, s, u, e_part);
     return cudaGetLastError();
   }
-  smem = rho_smem(npad);
+  smem = rho_smem(npad, MODE);
   static size_t done[64] = {};
-  err = allow_smem((const void*)xc_rho_kernel<KIND>, smem, done);
+  err = allow_smem((const void*)xc_rho_kernel<KIND, MODE>, smem, done);
   if (err != cudaSuccess) return err;
-  xc_rho_kernel<KIND><<<ntile, 256, smem, stream>>>(npad, gpad, dm, aot, gp,
-                                                     wt, s, u, e_part);
+  xc_rho_kernel<KIND, MODE><<<ntile, 256, smem, stream>>>(
+      npad, gpad, dm, aot, gp, wt, s, u, e_part);
   return cudaGetLastError();
+}
+
+// launch_rho for a kind known at run time
+template <int MODE>
+cudaError_t launch_rho_kind(int kind, int npad, int gpad, const float* dm,
+                            const float* aot, const GradPlanes& gp,
+                            const float* wt, float* s, float* u,
+                            float* e_part, cudaStream_t stream) {
+  switch (kind) {
+    case 0: return launch_rho<0, MODE>(npad, gpad, dm, aot, gp, wt, s, u, e_part, stream);
+    case 1: return launch_rho<1, MODE>(npad, gpad, dm, aot, gp, wt, s, u, e_part, stream);
+    case 2: return launch_rho<2, MODE>(npad, gpad, dm, aot, gp, wt, s, u, e_part, stream);
+    default: return launch_rho<3, MODE>(npad, gpad, dm, aot, gp, wt, s, u, e_part, stream);
+  }
 }
 
 // K1's V chunk (grid points per partial): a multiple of kGSlab with the V
@@ -1626,16 +1838,19 @@ int fused_xc(int kind, int variant, int nao, int npad, int gpad, int chunk,
   return (int)cudaGetLastError();
 }
 
-// K1 (kinds 1: PBE, 2: B3LYP) and K2 (kinds 0: LDA, 3: HF), no variant.
+// K1 (kinds 1: PBE, 2: B3LYP) and K2 (kinds 0: LDA, 3: HF) with mode
+// kTf32x3; K3 (either body) and the ablation phi3 (the GGA body, the same
+// computation as K3's) with mode kBf16x3, phi_D as the 3-pass bf16 split.
 // Shape contract (checked by the Python wrapper): 1 <= nao <= npad <= 384,
-// npad % 8 == 0, gpad % 1024 == 0, chunk a positive multiple of 16 (K1:
-// fused_xc_tc_v_chunk's) or 32 (K2); dm64 (nao, nao) f64 and its f32 padded copy's scratch dm
-// (npad, npad), aot (npad, gpad), wt/s (gpad), e_part (gpad / 64), v_part
-// (ceil(gpad / chunk), ldv, ldv) with ldv = 32 ceil(npad / 32), v_out
-// (nao, nao) and e_out (1) f64; K1 also the gradient planes gx/gy/gz
-// (npad, gpad) and u (3, gpad), null for K2.  Returns the CUDA error code
-// (0 on success).
-int fused_xc_tc(int kind, int nao, int npad, int gpad, int chunk,
+// npad % 8 == 0, gpad % 1024 == 0, chunk a positive multiple of 16 (GGA
+// body: fused_xc_tc_v_chunk's) or 32 (LDA body); dm64 (nao, nao) f64 and
+// the scratch dm of npad^2 floats for its f32 padded copy (mode kTf32x3)
+// or the bf16 hi and lo planes of that copy (kBf16x3), aot (npad, gpad),
+// wt/s (gpad), e_part (gpad / 64), v_part (ceil(gpad / chunk), ldv, ldv)
+// with ldv = 32 ceil(npad / 32), v_out (nao, nao) and e_out (1) f64; the
+// GGA body also the gradient planes gx/gy/gz (npad, gpad) and u (3, gpad),
+// null for the LDA body.  Returns the CUDA error code (0 on success).
+int fused_xc_tc(int kind, int mode, int nao, int npad, int gpad, int chunk,
                 const double* dm64, float* dm, const float* aot,
                 const float* gx, const float* gy, const float* gz,
                 const float* wt, float* s, float* u, float* e_part,
@@ -1645,19 +1860,26 @@ int fused_xc_tc(int kind, int nao, int npad, int gpad, int chunk,
   const bool gga = kind == 1 || kind == 2;
   if (nao < 1 || nao > npad || npad % 8 != 0 || npad > 384 ||
       gpad % kPack != 0 || chunk <= 0 || kind < 0 || kind > 3 ||
+      (mode != kTf32x3 && mode != kBf16x3) ||
       chunk % (gga ? kGSlab : kTk) != 0 ||
       (gga && (!gx || !gy || !gz || !u)))
     return (int)cudaErrorInvalidValue;
   const GradPlanes gp{{gx, gy, gz}};
-  xc_pad_dm_kernel<<<(npad * npad + 255) / 256, 256, 0, stream>>>(nao, npad,
-                                                                  dm64, dm);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  switch (kind) {
-    case 0: err = launch_rho<0>(npad, gpad, dm, aot, gp, wt, s, u, e_part, stream); break;
-    case 1: err = launch_rho<1>(npad, gpad, dm, aot, gp, wt, s, u, e_part, stream); break;
-    case 2: err = launch_rho<2>(npad, gpad, dm, aot, gp, wt, s, u, e_part, stream); break;
-    default: err = launch_rho<3>(npad, gpad, dm, aot, gp, wt, s, u, e_part, stream); break;
+  const int pad_blocks = (npad * npad + 255) / 256;
+  cudaError_t err;
+  if (mode == kBf16x3) {
+    xc_split_dm_kernel<<<pad_blocks, 256, 0, stream>>>(
+        nao, npad, dm64, reinterpret_cast<__nv_bfloat16*>(dm));
+    err = cudaGetLastError();
+    if (err == cudaSuccess)
+      err = launch_rho_kind<kBf16x3>(kind, npad, gpad, dm, aot, gp, wt, s, u,
+                                     e_part, stream);
+  } else {
+    xc_pad_dm_kernel<<<pad_blocks, 256, 0, stream>>>(nao, npad, dm64, dm);
+    err = cudaGetLastError();
+    if (err == cudaSuccess)
+      err = launch_rho_kind<kTf32x3>(kind, npad, gpad, dm, aot, gp, wt, s, u,
+                                     e_part, stream);
   }
   if (err != cudaSuccess) return (int)err;
   const int T = (npad + kVTile - 1) / kVTile;

@@ -9,7 +9,8 @@ keyword (arguments, not environment variables, so one process can run
 them all):
 
   * ``phi_split=True``: K3, phi_D as the 3-pass bf16 split on the tensor
-    cores (``_make_kernel(phi_split=True)``), either body;
+    cores (``_make_kernel(phi_split=True)``), either body, in the rho
+    kernel of K1 and K2;
   * ``ablate=``: the GGA body with one phase stubbed (``_ENV_ABLATE``):
     "nophi" (phi_D := AO), "phi3" (phi_D through K3), "noprod" (row sums
     without the products), "nofunc" (e = rho, vrho = rho, vsigma = sigma),
@@ -21,7 +22,8 @@ them all):
 K1 and K2 (the GGA and LDA bodies with no variant, replacing
 ``pallas_xc.py:201-265`` and ``:269-291``) have a design of their own for
 Hopper (``csrc/fused_xc.cu``'s header note), one C entry (``fused_xc_tc``)
-of three kernels:
+of three kernels, which K3 (either body, without split2) and the ablation
+phi3 (K3's GGA body) share with a product mode of their own (``route``):
 
   * ``xc_rho_kernel`` (or, where D fits in shared memory, npad <= 176 for
     K2 and <= 168 for K1, the persistent ``xc_rho_res_kernel``): phi_D on
@@ -39,15 +41,19 @@ of three kernels:
   * the deterministic reduce, which mirrors the upper triangle (K1: and
     halves it).
 
-Both products are 3 x TF32 (hi = tf32(x), lo = x - hi; hi.lo + lo.hi +
-hi.hi with f32 sums): f32-class, as the TPU kernel's phi_D at HIGHEST,
-since a coarser phi_D costs SCF cycles (``pallas_xc.py:131-141``).  The old
-design (FP32 FMA tiles, phi_D and B^T planes in HBM, all of V) measured
-5.4-5.8 ms (K1) and 4.5-5.0 ms (K2) at DHA; it stays as the four-kernel
-pipeline of K3 and the variants, and ``base=True`` runs K1 on it
-(``K1base``, the base the ablations subtract from in
-``tools/torch_xc_sweep.py``).  What bounds the new kernels is in the header
-note and ``PERF.md``.
+For K1 and K2 both products are 3 x TF32 (hi = tf32(x), lo = x - hi;
+hi.lo + lo.hi + hi.hi with f32 sums): f32-class, as the TPU kernel's phi_D
+at HIGHEST, since a coarser phi_D costs SCF cycles
+(``pallas_xc.py:131-141``).  K3 and phi3 form phi_D as ``mm_phi`` does,
+the 3-pass bf16 split (D_h AO_h + D_h AO_l + D_l AO_h, f32 sums) on
+m16n8k16 bf16 ``mma.sync``, D split once per call, and then run K1's and
+K2's fold, functional, V and reduce as they are.  The old design (FP32
+FMA tiles, phi_D and B^T planes in HBM, all of V) measured 5.4-5.8 ms (K1)
+and 4.5-5.0 ms (K2) at DHA; it stays as the four-kernel pipeline of
+K1base (``base=True``: K1 on it, the base the other ablations subtract
+from in ``tools/torch_xc_sweep.py``), the ablations nophi, noprod, nofunc
+and nov, split2, and K3 with split2.  What bounds the new kernels is in
+the header note and ``PERF.md``.
 
 The SCF passes no variant.  This module builds the kernels at first use
 (nvcc, keyed by a hash of the sources), binds them with ctypes, and keeps
@@ -116,6 +122,9 @@ REDUCTIONS = ("f32", "split2")
 # the variant word of the C entry (csrc/fused_xc.cu's k* constants)
 _VAR_BITS = {"phi_split": 1, "nophi": 2, "phi3": 1, "noprod": 4,
              "nofunc": 8, "nov": 16, "split2": 32}
+# the product modes of fused_xc_tc's rho kernels (csrc/fused_xc.cu's
+# kTf32x3: 3 x TF32; kBf16x3: the 3-pass bf16 split)
+TF32X3, BF16X3 = 0, 1
 
 # each variant alone, by the LAUNCHES name it counts under -> the keywords
 # of fused_xc (K1: none; K1base: K1 on the four-kernel pipeline, the
@@ -181,7 +190,7 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.fused_xc.argtypes = [i, i, i, i, i, i] + [p] * 12
         lib.fused_xc.restype = i
-        lib.fused_xc_tc.argtypes = [i] * 5 + [p] * 14
+        lib.fused_xc_tc.argtypes = [i] * 6 + [p] * 14
         lib.fused_xc_tc.restype = i
         lib.fused_xc_tc_v_chunk.argtypes = [i, i]
         lib.fused_xc_tc_v_chunk.restype = i
@@ -298,6 +307,21 @@ def launch_names(functional: Functional, phi_split: bool = False,
     names = (["K3"] if phi_split else []) + (
         ["split2"] if reduce == "split2" else [])
     return names or ["K1" if functional.needs_grad else "K2"]
+
+
+def route(functional: Functional, phi_split: bool = False, ablate: str = "",
+          reduce: str = "f32", base: bool = False) -> tuple[str, object]:
+    """Which C entry runs a variant: ("tc", mode) for fused_xc_tc, K1/K2
+    with the 3 x TF32 product (TF32X3) and K3 (without split2) and phi3
+    with the 3-pass bf16 split (BF16X3); ("pipeline", variant word) for
+    fused_xc's four kernels: K1base, the other ablations, split2 and K3
+    with split2.  Raises as launch_names does."""
+    names = launch_names(functional, phi_split, ablate, reduce, base)
+    if names in (["K1"], ["K2"]):
+        return "tc", TF32X3
+    if names in (["K3"], ["phi3"]):
+        return "tc", BF16X3
+    return "pipeline", _variant_word(phi_split, ablate, reduce)
 
 
 def _variant_word(phi_split: bool, ablate: str, reduce: str) -> int:
@@ -438,8 +462,9 @@ def _launch(functional: Functional, dm, aot, wt, grads, n: int,
             phi_split: bool, ablate: str, reduce: str, base: bool):
     names = launch_names(functional, phi_split, ablate, reduce, base)
     _check_inputs(functional, dm, aot, wt, grads, n)
-    if names in (["K1"], ["K2"]):
-        return _launch_tc(functional, dm, aot, wt, grads, n, names[0])
+    entry, arg = route(functional, phi_split, ablate, reduce, base)
+    if entry == "tc":
+        return _launch_tc(functional, dm, aot, wt, grads, n, names[0], arg)
     npad, gpad = aot.shape
     dev = aot.device
     f32 = torch.float32
@@ -456,7 +481,7 @@ def _launch(functional: Functional, dm, aot, wt, grads, n: int,
         gx, gy, gz = grads[0], grads[1], grads[2]
     with _on(dev):
         code = _lib().fused_xc(
-            functional.kind, _variant_word(phi_split, ablate, reduce), n,
+            functional.kind, arg, n,
             npad, gpad, chunk, _ptr(dm_p), _ptr(aot), _ptr(gx), _ptr(gy),
             _ptr(gz), _ptr(wt), _ptr(phi_bt), _ptr(e_part), _ptr(v_part),
             _ptr(v_out), _ptr(e_out), _stream())
@@ -467,10 +492,12 @@ def _launch(functional: Functional, dm, aot, wt, grads, n: int,
 
 
 def _launch_tc(functional: Functional, dm, aot, wt, grads, n: int,
-               name: str):
-    """K1/K2: the density's f32 copy, xc_rho(_res)_kernel, xc_gga_v_kernel
-    (K1) or xc_lda_v_kernel (K2), and the reduce, which writes E and V in
-    f64.  As little as possible runs on the host before the first launch."""
+               name: str, mode: int):
+    """K1/K2 (mode TF32X3) and K3/phi3 (BF16X3): the density's f32 copy
+    (or its bf16 hi and lo planes), xc_rho(_res)_kernel, xc_gga_v_kernel
+    (GGA body) or xc_lda_v_kernel (LDA body), and the reduce, which writes E
+    and V in f64; counted under `name`.  As little as possible runs on the
+    host before the first launch."""
     npad, gpad = aot.shape
     dev, f32 = aot.device, torch.float32
     gga = functional.needs_grad
@@ -482,8 +509,9 @@ def _launch_tc(functional: Functional, dm, aot, wt, grads, n: int,
         chunk = lda_v_chunk(npad, gpad)
     ldv = -(-npad // LDA_V_TILE) * LDA_V_TILE
     dm64 = dm.to(torch.float64).contiguous()
-    # one scratch allocation: dm_p (npad, npad), s (gpad), u (3, gpad) for
-    # K1, the E partials (gpad / 64), the V partials (nchunk, ldv, ldv);
+    # one scratch allocation: dm_p (npad, npad; in mode BF16X3 the hi and
+    # lo bf16 planes in the same bytes), s (gpad), u (3, gpad) for the GGA
+    # body, the E partials (gpad / 64), the V partials (nchunk, ldv, ldv);
     # every piece is a multiple of 4 floats, so each starts 16-byte aligned
     sizes = (npad * npad, gpad, 3 * gpad if gga else 0, gpad // RHO_COLS,
              -(-gpad // chunk) * ldv * ldv)
@@ -500,7 +528,8 @@ def _launch_tc(functional: Functional, dm, aot, wt, grads, n: int,
         gx, gy, gz = grads[0], grads[1], grads[2]
     with _on(dev):
         code = _lib().fused_xc_tc(
-            functional.kind, n, npad, gpad, chunk, _ptr(dm64), dm_p,
+            functional.kind, mode, n, npad, gpad, chunk,
+            _ptr(dm64), dm_p,
             _ptr(aot), _ptr(gx), _ptr(gy), _ptr(gz), _ptr(wt), s, u,
             e_part, v_part, _ptr(v_out), _ptr(e_out), _stream())
     _check(code, "fused_xc_tc launch")

@@ -4,14 +4,15 @@ row sums) against their plain PyTorch versions, determinism and launch
 counting, in-core (H2O) and above npad 64 (Decane npad 72, DHA npad 152);
 K1 and K2 (the GGA and LDA bodies on TF32 tensor cores) also against the
 f64 engine (relative dE and max dV 5e-5, the Pallas contract) at every
-shape from H2O to npad 384.  Imports no JAX, so it also runs where JAX is
-absent:
+shape from H2O to npad 384 (184 and 200 among them), and K3 and phi3 (the bf16 mode of the same
+kernels) there against the plain K3 and the f64 engine (3e-4, 3e-3).
+Imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -q tests/test_torch_gpu.py
 
 Skips without a CUDA GPU.  Tolerance: relative dE 1e-5 and max dV 1e-5
 (kernel and plain version are both f32 with a different summation order);
-K3's max dV 5e-5 (tensor-core sums); the ablations' max dV 5e-5 of
+K3's and phi3's max dV 5e-5 (tensor-core sums); the other ablations' max dV 5e-5 of
 max(1, max |V|), since an ablated V reaches 1e10 (nofunc), and 2e-3 of it
 for noprod: its rho = sum phi_D cancels to near zero at some points, where
 the B3LYP potentials amplify the f32 rounding of that sum (measured 1.5e-5
@@ -61,11 +62,11 @@ def _check_kernel(fn, dm, aot, wt, grads, n, **variant):
     assert torch.equal(e_k, e_k2) and torch.equal(v_k, v_k2)
     assert abs(float(e_k) - float(e_p)) <= 1e-5 * max(abs(float(e_p)), 1.0)
     tol_v = 1e-5
-    if variant.get("ablate"):
+    if variant.get("phi_split") or variant.get("ablate") == "phi3":
+        tol_v = 5e-5
+    elif variant.get("ablate"):
         tol_v = (2e-3 if variant["ablate"] == "noprod" else 5e-5) * max(
             1.0, float(torch.abs(v_p).max()))
-    elif variant.get("phi_split"):
-        tol_v = 5e-5
     assert float(torch.abs(v_k - v_p).max()) < tol_v
     if variant.get("ablate") == "nov":
         assert not v_k.any()
@@ -163,7 +164,10 @@ def _tc_planes(shape, fn, dev):
     K2): H2O grid 1 at a perturbed guess, else a perturbed SAD density on
     grid-1 points (Decane's first 65 AOs on every 4th point: npad 72,
     ragged; Decane and DHA on every 4th point: npad 72, 152; the first
-    65,536 points of C33H56N7O17P3S: npad 384)."""
+    65,536 points of C17H31O6N5S: npad 184, and of C33H56N7O17P3S: npad
+    384, and its first 197 AOs there: npad 200, ragged.  npad 184 and 200
+    take the streaming rho kernel's last half k16 step, from a 24- and an
+    8-deep last D slab)."""
     if shape == "H2O":
         setup = kohn_sham.prepare(
             from_xyz_file(os.path.join(ROOT, "molecules", "H2O.xyz")), fn,
@@ -172,12 +176,14 @@ def _tc_planes(shape, fn, dev):
         pert = np.random.default_rng(13).standard_normal((n, n)) * 1e-2
         dm = initial_guess(setup.sys) + torch.tensor(pert + pert.T, device=dev)
         return dm, setup.sys.ao, setup.sys.weights, setup.sys.ao_grad
-    molecule = {"Decane65": "Decane", "npad384": "C33H56N7O17P3S"}.get(
-        shape, shape)
+    molecule = {"Decane65": "Decane", "npad184": "C17H31O6N5S",
+                "npad200": "C33H56N7O17P3S",
+                "npad384": "C33H56N7O17P3S"}.get(shape, shape)
     mol = from_xyz_file(os.path.join(ROOT, "molecules", molecule + ".xyz"))
     basis = build_basis(mol)
     grid = build_grid(mol, level=1, device=dev)
-    pts = slice(0, 65536) if shape == "npad384" else slice(None, None, 4)
+    pts = (slice(0, 65536) if shape.startswith("npad")
+           else slice(None, None, 4))
     grad = None
     if fn.needs_grad:
         ao, grad = eval_ao(basis, grid.coords[pts], deriv=1, device=dev)
@@ -188,15 +194,16 @@ def _tc_planes(shape, fn, dev):
     pert = np.random.default_rng(19).standard_normal((n, n)) * 1e-2
     dm = torch.tensor(np.diag(sad_occupations(basis, mol.charges, mol.nelec))
                       + pert + pert.T, device=dev)
-    if shape == "Decane65":
-        dm, ao = dm[:65, :65], ao[:, :65].contiguous()
+    sub = {"Decane65": 65, "npad200": 197}.get(shape)
+    if sub is not None:
+        dm, ao = dm[:sub, :sub], ao[:, :sub].contiguous()
         if grad is not None:
-            grad = grad[:, :, :65].contiguous()
+            grad = grad[:, :, :sub].contiguous()
     return dm, ao, w, grad
 
 
 TC_SHAPES = [("H2O", 8), ("Decane65", 72), ("Decane", 72), ("DHA", 152),
-             ("npad384", 384)]
+             ("npad184", 184), ("npad200", 200), ("npad384", 384)]
 
 
 def _check_tc(shape, npad, name):
@@ -228,7 +235,49 @@ def test_cuda_k1_matches_plain_and_f64(shape, npad, name):
     _check_tc(shape, npad, name)
 
 
-@pytest.mark.parametrize("npad", [8, 40, 72, 152, 160, 168, 384])
+# K3 in both bodies and phi3 (K3's GGA body), on fused_xc_tc's bf16 mode
+K3_CASES = [("LDA", {"phi_split": True}), ("B3LYP", {"phi_split": True}),
+            ("B3LYP", {"ablate": "phi3"})]
+
+
+def _peak_bytes(fn, dm, aot, wt, grads, n, **variant):
+    """Device memory one call allocates beyond what was live before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fused_xc.fused_xc(fn, dm, aot, wt, grads, n, **variant)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+@pytest.mark.parametrize("shape,npad", TC_SHAPES)
+@pytest.mark.parametrize("name,variant", K3_CASES,
+                         ids=["K3-LDA", "K3-B3LYP", "phi3-B3LYP"])
+def test_cuda_k3_and_phi3_match_plain_and_f64(shape, npad, name, variant):
+    """K3 and phi3 at every K1/K2 shape (resident and streaming rho
+    kernels, npad 8 to 384, with a last half k16 step at npad 8, 40, 72,
+    152, 184 and 200): against the plain K3 (relative dE 1e-5, max
+    dV 5e-5), bitwise over two calls, the launch count, the f64 engine
+    (3e-4 and 3e-3, the JAX package's K3 contract), and no more device
+    memory than K1's or K2's call on the same planes (no phi_D or B^T
+    plane)."""
+    dev = _cuda()
+    fn = FUNCTIONALS[name]
+    dm, ao, w, grad = _tc_planes(shape, fn, dev)
+    n = dm.shape[0]
+    aot, wt, grads = fused_xc.pack_inputs(ao, w, grad,
+                                          needs_grad=fn.needs_grad)
+    assert aot.shape[0] == npad
+    _check_kernel(fn, dm, aot, wt, grads, n, **variant)
+    e_k, v_k = fused_xc.fused_xc(fn, dm, aot, wt, grads, n, **variant)
+    e_64, v_64 = xc_step(fn, dm, ao, w, grad)
+    assert abs(float(e_k) - float(e_64)) <= 3e-4 * max(abs(float(e_64)), 1.0)
+    assert float(torch.abs(v_k - v_64).max()) < 3e-3
+    assert _peak_bytes(fn, dm, aot, wt, grads, n, **variant) <= _peak_bytes(
+        fn, dm, aot, wt, grads, n)
+
+
+@pytest.mark.parametrize("npad", [8, 40, 72, 152, 160, 168, 184, 200, 384])
 @pytest.mark.parametrize("gpad", [1024, 65536, 138240, 634880, 1150976])
 def test_cuda_k1_v_chunk_covers_the_grid_with_bounded_partials(npad, gpad):
     """K1's V chunk from the C side: whole 16-point slabs, every slab in

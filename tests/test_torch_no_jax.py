@@ -77,7 +77,8 @@ def test_source_scan_finds_no_jax_import():
     assert os.path.join(ROOT, "tools", "torch_northstar.py") in tools
     assert os.path.join(ROOT, "tools", "torch_kernel_timing.py") in tools
     assert os.path.join(ROOT, "tools", "torch_northstar_mesh.py") in tools
-    for name in ("optimize_heavy_zetas", "apply_optimized_zetas",
+    for name in ("optimize_heavy_zetas", "apply_optimized_zetas", "rescue_ladder",
+                 "rescue_search",
                  "zeta_sensitivity", "oracle_diffs", "grid_error_study",
                  "import_basis", "results_md", "atomic_timing"):
         assert os.path.join(ROOT, "tools", f"torch_{name}.py") in tools

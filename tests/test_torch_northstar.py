@@ -44,17 +44,24 @@ def test_northstar_setup_caches_factor(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("kid, needs_grad, n, npts", [
     ("K1", True, 377, 540054), ("K2", False, 152, 91000),
-    ("nophi", True, 152, 91000), ("nov", True, 36, 20000)])
+    ("nophi", True, 152, 91000), ("nov", True, 36, 20000),
+    ("K3", True, 152, 634880), ("K3", False, 152, 634880),
+    ("phi3", True, 152, 634880)])
 def test_xc_bound(kid, needs_grad, n, npts):
     ms, by, t_b, t_o, t_fp32 = kt.xc_bound(kid, needs_grad, n, npts)
     planes = 4 if needs_grad else 1
     nbytes = 8 * (2 * n * n + 1) + 4 * (planes * n + 1) * npts
     phi = 0 if kid == "nophi" else 2 * n * n * npts
     v = 0 if kid == "nov" else (2 * n * n if needs_grad else n * (n + 1)) * npts
+    # K3 and phi3 form phi_D as the bf16 split, at the bf16 rate
+    phi_rate = kt.BF16_FLOP_S if kid in ("K3", "phi3") else kt.TF32_FLOP_S
     assert t_b == pytest.approx(1e3 * nbytes / kt.HBM_BYTES_S, rel=1e-12)
-    assert t_o == pytest.approx(1e3 * (phi + v) / kt.TF32_FLOP_S, rel=1e-12)
+    assert t_o == pytest.approx(
+        1e3 * (phi / phi_rate + v / kt.TF32_FLOP_S), rel=1e-12)
     assert t_fp32 == pytest.approx(1e3 * (phi + v) / kt.FP32_FLOP_S, rel=1e-12)
     assert ms == max(t_b, t_o)
     assert by == ("bytes" if t_b >= t_o else "operations")
     if kid == "K1":   # the north star's whole grid: bytes set the bound
         assert by == "bytes" and ms == pytest.approx(0.9737, abs=1e-4)
+    if kid in ("K3", "phi3"):   # DHA grid 3: bytes set it in both bodies
+        assert by == "bytes"

@@ -213,6 +213,72 @@ def test_launch_names():
         assert fused_xc.launch_names(gga, **kw) == [name]
 
 
+def test_route():
+    """Which C entry each variant reaches: K1/K2 and K3/phi3 the tensor-core
+    entry (3 x TF32, the bf16 split), the rest the four-kernel pipeline with
+    its variant word."""
+    gga, lda = FUNCTIONALS["GGA"], FUNCTIONALS["LDA"]
+    assert fused_xc.route(gga) == fused_xc.route(lda) == ("tc", fused_xc.TF32X3)
+    for fn in (gga, lda):
+        assert fused_xc.route(fn, phi_split=True) == ("tc", fused_xc.BF16X3)
+    assert fused_xc.route(gga, ablate="phi3") == ("tc", fused_xc.BF16X3)
+    assert fused_xc.route(gga, phi_split=True, reduce="split2") == (
+        "pipeline", 1 | 32)
+    assert fused_xc.route(lda, reduce="split2") == ("pipeline", 32)
+    assert fused_xc.route(gga, base=True) == ("pipeline", 0)
+    for a in ("nophi", "noprod", "nofunc", "nov"):
+        assert fused_xc.route(gga, ablate=a) == (
+            "pipeline", fused_xc._VAR_BITS[a])
+
+
+class _FakeLib:
+    """Stands in for the built library: records the C entry a launch calls
+    and its arguments (no card needed)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def fused_xc_tc_v_chunk(self, npad, gpad):
+        return 16
+
+    def fused_xc_tc(self, *args):
+        self.calls.append(("fused_xc_tc", args))
+        return 0
+
+    def fused_xc(self, *args):
+        self.calls.append(("fused_xc", args))
+        return 0
+
+
+@pytest.mark.parametrize("name,kw,launch,mode", [
+    ("B3LYP", {"phi_split": True}, "K3", 1),
+    ("LDA", {"phi_split": True}, "K3", 1),
+    ("GGA", {"ablate": "phi3"}, "phi3", 1),
+    ("B3LYP", {}, "K1", 0),
+    ("LDA", {}, "K2", 0),
+])
+def test_launch_reaches_tensor_core_entry(monkeypatch, name, kw, launch,
+                                          mode):
+    """K3 (both bodies) and phi3 launch fused_xc_tc in the bf16 mode (1),
+    K1/K2 in the TF32 mode (0), one call, counted under their names; the
+    four-kernel entry is not called (no phi_D or B^T plane)."""
+    fake = _FakeLib()
+    monkeypatch.setattr(fused_xc, "_lib", lambda: fake)
+    monkeypatch.setattr(fused_xc, "_stream", lambda: 0)
+    monkeypatch.setitem(fused_xc.LAUNCHES, launch, 0)
+    _, dm, (dm_t, ao, w, grad) = _inputs(name)
+    fn = FUNCTIONALS[name]
+    aot, wt, grads = fused_xc.pack_inputs(ao, w, grad,
+                                          needs_grad=fn.needs_grad)
+    fused_xc._launch(fn, dm_t, aot, wt, grads, dm.shape[0],
+                     kw.get("phi_split", False), kw.get("ablate", ""), "f32",
+                     False)
+    [(entry, args)] = fake.calls
+    assert entry == "fused_xc_tc"
+    assert args[:2] == (fn.kind, mode)
+    assert fused_xc.LAUNCHES[launch] == 1
+
+
 def test_sweep_tool_prints_every_variant_on_cpu():
     out = subprocess.run(
         [sys.executable, os.path.join(ROOT, "tools", "torch_xc_sweep.py"),
@@ -228,3 +294,8 @@ def test_sweep_tool_prints_every_variant_on_cpu():
     by = {r["variant"]: r["e_xc"] for r in rows}
     assert by["nov"] == by["K1"] == by["K1base"] and by["phi3"] == by["K3"]
     assert by["K3"] != by["K1"]
+    # K3 and phi3 are read against K1 (one pipeline), the rest against K1base
+    assert {r["variant"]: r["base"] for r in rows} == {
+        "K1": None, "K1base": None, "K3": "K1", "phi3": "K1",
+        "nophi": "K1base", "noprod": "K1base", "nofunc": "K1base",
+        "nov": "K1base", "split2": "K1base"}

@@ -15,11 +15,15 @@ import statistics
 import subprocess
 
 # the card's peaks for the bounds (H100 SXM data sheet, 700 W): HBM bytes/s
-# and the TF32 tensor-core rate, at which the product FLOPs are counted;
-# the FP32 pipe's rate, reported beside it
+# and the tensor-core rates (TF32; bf16 dense for the products K3 and phi3
+# form as the 3-pass bf16 split), at which the product FLOPs are counted;
+# the FP32 pipe's rate, reported beside them
 HBM_BYTES_S = 3.35e12
 TF32_FLOP_S = 495e12
+BF16_FLOP_S = 989e12
 FP32_FLOP_S = 67e12
+# the rows whose phi_D is the bf16 split
+BF16_PHI = ("K3", "phi3")
 
 
 def cuda_ms(fn, reps: int = 25, warm: int = 3) -> float:
@@ -68,18 +72,21 @@ def xc_bound(kid: str, needs_grad: bool, n: int, npts: int):
     once (the f64 D, the f32 AO plane and for the GGA body its three
     gradient planes, the f32 weights) and each output written once (the
     f64 V and E), at HBM_BYTES_S.  Operations: the products the variant
-    computes, at the TF32 rate: phi_D = D AO, 2 n^2 npts FLOPs; V,
+    computes, on the tensor cores: phi_D = D AO, 2 n^2 npts FLOPs, at the
+    TF32 rate, or for K3 and phi3 (the bf16 split) at the bf16 rate; V,
     symmetric, a syr2k (AO B^T + B AO^T) of 2 n^2 npts FLOPs for the GGA
-    body and a syrk (AO diag(s) AO^T) of n (n + 1) npts for the LDA body;
-    the ablation nophi drops phi_D, nov drops V.
-    -> (ms, "bytes" | "operations", bytes ms, TF32 ops ms, the same FLOPs'
-    ms on the FP32 pipe)."""
+    body and a syrk (AO diag(s) AO^T) of n (n + 1) npts for the LDA body,
+    at the TF32 rate; the ablation nophi drops phi_D, nov drops V.
+    -> (ms, "bytes" | "operations", bytes ms, tensor-core ops ms, the same
+    FLOPs' ms on the FP32 pipe)."""
     planes = 4 if needs_grad else 1
     nbytes = 8 * (2 * n * n + 1) + 4 * (planes * n + 1) * npts
-    flops = 0.0 if kid == "nophi" else 2.0 * n * n * npts
+    phi = 0.0 if kid == "nophi" else 2.0 * n * n * npts
+    v = 0.0
     if kid != "nov":
-        flops += (2.0 * n * n if needs_grad else n * (n + 1.0)) * npts
+        v = (2.0 * n * n if needs_grad else n * (n + 1.0)) * npts
     t_b = nbytes / HBM_BYTES_S
-    t_o = flops / TF32_FLOP_S
+    t_o = (phi / (BF16_FLOP_S if kid in BF16_PHI else TF32_FLOP_S)
+           + v / TF32_FLOP_S)
     return (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations",
-            1e3 * t_b, 1e3 * t_o, 1e3 * flops / FP32_FLOP_S)
+            1e3 * t_b, 1e3 * t_o, 1e3 * (phi + v) / FP32_FLOP_S)

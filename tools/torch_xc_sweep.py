@@ -10,17 +10,21 @@ SAD initial density.  For each variant it times the kernel and its plain
 PyTorch version with CUDA events (3 warm-up calls, then the median of 25
 and their spread) and prints one JSON line: molecule, grid_level, nao,
 npad, gpad, v_chunk, variant, calls (kernel calls made for the variant),
-ms, ms_min, ms_max, plain_ms, plain_min, plain_max, e_xc, e_xc_plain, gpu
-and power_limit (nvidia-smi).
+ms, ms_min, ms_max, plain_ms, plain_min, plain_max, e_xc, e_xc_plain,
+base (the row it is read against), gpu and power_limit (nvidia-smi).
 
 Variants (engine/fused_xc.py's VARIANTS): K1 (the SCF's kernel, on the
 tensor cores), K1base (base=True: K1 on the four-kernel pipeline of FP32
 products with a phi_D/B^T plane), K3 (phi_split=True), the ablations nophi,
 phi3, noprod, nofunc and nov and split2 (reduce="split2", the TPU kernel's
-2-pass row sums).  The ablations and split2 each change one phase of the
-four-kernel pipeline (the ablations' results are wrong by design), so their
-times are read against K1base's row: K1base minus an ablation is the time
-of the phase it removes.  K1's row is the redesigned kernel beside them.  The JAX tool's DFT_PALLAS_TILE and
+2-pass row sums).  Each row names its base, by the C entry it runs
+(fused_xc.route): K3 and phi3 run K1's kernels with phi_D as the bf16
+split, so they are read against K1 (phi3 - K1 is the cost of the bf16
+product against 3 x TF32 on one pipeline); the other ablations and split2
+each change one phase of the four-kernel pipeline (the ablations' results
+are wrong by design), so they are read against K1base: K1base minus an
+ablation is the time of the phase it removes.  K1 and K1base have no
+base.  The JAX tool's DFT_PALLAS_TILE and
 DFT_PALLAS_NPAD_GRAN are TPU layout controls with no counterpart in the
 tiled CUDA kernels; the line gives the port's V chunk instead.
 
@@ -113,12 +117,15 @@ def sweep(argv=None) -> list[dict]:
             ms, ms_min, ms_max = _cuda_times(kernel)
             pl, pl_min, pl_max = _cuda_times(plain)
             calls += WARM + REPS
+        base = None
+        if name not in ("K1", "K1base"):
+            base = "K1" if fused_xc.route(fn, **kw)[0] == "tc" else "K1base"
         row = {"molecule": args.molecule, "grid_level": args.grid_level,
                "nao": n, "npad": npad, "gpad": gpad,
                "v_chunk": fused_xc.v_chunk(npad, gpad), "variant": name,
                "calls": calls, "ms": ms, "ms_min": ms_min, "ms_max": ms_max,
                "plain_ms": pl, "plain_min": pl_min, "plain_max": pl_max,
-               "e_xc": e_xc, "e_xc_plain": e_plain, "gpu": gpu,
+               "e_xc": e_xc, "e_xc_plain": e_plain, "base": base, "gpu": gpu,
                "power_limit": power}
         print(json.dumps(row), flush=True)
         rows.append(row)
