@@ -30,14 +30,23 @@ raises and the script exits non-zero without the final line):
         equal over two calls, with no more device memory than K1's or K2's
         call on the same planes (no phi_D or B^T plane); times at benzene
         and DHA, and the kernel split at DHA (torch.profiler)
-     d. K1base (K1 on the four-kernel pipeline, the ablations' base), the
-        K1 ablations on that pipeline (nophi, noprod, nofunc, nov) and the
+     d. the ablations nophi (K1's kernels with no phi_D product: the rho
+        kernel reads no density) and nov (K1's rho kernel and E sum, no V
+        kernel) at every GGA shape of 3a/3b: against their plain versions
+        (relative dE 1e-5, max dV 5e-5 of max(1, max |V|)), bitwise equal
+        over two calls, with no more device memory than K1's call; nov's V
+        exactly zero and its E K1's bit for bit; times at benzene and DHA,
+        the kernel split at DHA (torch.profiler), and K1's time at DHA
+        attributed: V = K1 - nov, the phi_D product (with D's staging) =
+        K1's rho kernel - nophi's
+     e. K1base (K1 on the four-kernel pipeline, the base of noprod and
+        nofunc), the K1 ablations on that pipeline (noprod, nofunc) and the
         split2 row sums at benzene (PBE) and DHA (B3LYP), split2 also in
         the LDA body,
         against their own plain versions (relative dE 1e-5; max dV 1e-5 for
         K1base and split2, of max(1, max |V|) 5e-5 for the ablations, whose
         V reaches 1e10 (nofunc), and 2e-3 for noprod, see TOL_NOPROD_V);
-        nov's V exactly zero; times
+        times
   4. the main paths, each with the kernels' launch counts set to 0 just
      before it and read just after, through the port's CLI in process with
      --xc-impl fast at grid level 3:
@@ -145,7 +154,8 @@ raises and the script exits non-zero without the final line):
   5. the variant sweep (tools/torch_xc_sweep.py, in process) at DHA grid 3
      with the launch counts set to 0 just before it: one JSON line per
      variant, one launch of each variant's kernel per kernel call it made,
-     each E within 1e-5 of its plain version
+     each E within 1e-5 of its plain version; K3, phi3, nophi and nov read
+     against K1 (the rows on its kernels)
 
 The last three lines are the kernels' JSON record (every kernel with its
 launches on its path, its largest deviation from its plain version, its
@@ -260,10 +270,11 @@ KERNEL_NAMES = {
     "K1": "K1 fused_xc GGA body", "K2": "K2 fused_xc LDA body",
     "K1base": "K1base fused_xc GGA body on the four-kernel pipeline",
     "K3": "K3 fused_xc phi_D as the 3-pass bf16 split (both bodies)",
-    "nophi": "K1 ablation nophi",
+    "nophi": "K1 ablation nophi (K1's kernels, no phi_D product)",
     "phi3": "K1 ablation phi3 (K3's GGA body)",
     "noprod": "K1 ablation noprod", "nofunc": "K1 ablation nofunc",
-    "nov": "K1 ablation nov", "split2": "fused_xc split2 row sums",
+    "nov": "K1 ablation nov (K1's rho kernel and reduce, no V kernel)",
+    "split2": "fused_xc split2 row sums",
 }
 
 
@@ -473,7 +484,7 @@ def _df_shapes(dev):
 def phase_kernels(dev):
     """Kernel vs plain vs f64 engine; returns per-kernel records and the
     checked cases (label, functional, dm, packed planes, n, f64 planes),
-    which phases 3c and 3d reuse."""
+    which phases 3c, 3d and 3e reuse."""
     t0 = time.time()
     import numpy as np
     import torch
@@ -545,7 +556,7 @@ def phase_kernels(dev):
     return rec, cases
 
 
-# the cases timed in 3c/3d -> their record key prefix ("" benzene GGA body)
+# the cases timed in 3c-3e -> their record key prefix ("" benzene GGA body)
 TIMED = {"Benzene/GGA": "", "Benzene/LDA": "lda_", "DHA grid 3/B3LYP": "dha_",
          "DHA grid 3/LDA": "dha_lda_"}
 
@@ -592,10 +603,65 @@ def phase_k3(cases, rec):
            "K1's or K2's memory")
 
 
+def _rho_ms(split):
+    """The rho kernel's ms in a _profile split."""
+    return sum(v for k, v in split.items() if k.startswith("xc_rho"))
+
+
+def phase_k1_ablations(cases, rec):
+    """nophi and nov (GGA body) at every phase-3 shape: K1's kernels with no
+    phi_D product and with no V kernel, held to their plain versions, with
+    no more device memory than K1's call; nov's V exactly zero and its E
+    K1's bit for bit; times at benzene and DHA, the kernel split at DHA,
+    and K1's DHA time attributed to V and to the phi_D product."""
+    import torch
+
+    from quantum_compute_dft_tpu_torch.engine import fused_xc
+
+    t0 = time.time()
+    for case in cases:
+        if not case[1].needs_grad:
+            continue
+        for kid in ("nophi", "nov"):
+            variant = fused_xc.VARIANTS[kid]
+            v = _compare(case[0], kid, case, rec, variant,
+                         (TOL_PLAIN, TOL_ABLATE_V), None, v_scaled=True)
+            extra, base = _extra_bytes(case, variant), _extra_bytes(case, {})
+            if extra > base:
+                raise AssertionError(f"{kid} {case[0]}: {extra} bytes "
+                                     f"allocated, K1 {base}")
+            if kid == "nov":
+                e_nov = fused_xc.fused_xc(*case[1:7], **variant)[0]
+                e_k1 = fused_xc.fused_xc(*case[1:7])[0]
+                if bool(v.any()) or not torch.equal(e_nov, e_k1):
+                    raise AssertionError(f"nov {case[0]}: V is not zero or "
+                                         f"E {float(e_nov)} is not K1's "
+                                         f"{float(e_k1)}")
+            if case[0] in TIMED:
+                _time(kid, case[0], case, rec, TIMED[case[0]], variant)
+            if case[0].startswith("DHA grid 3/"):
+                _profile(kid, case, rec, variant=variant,
+                         key=TIMED[case[0]] + "split_ms")
+    k1 = rec["K1"]
+    v_ms = k1["dha_ms"] - rec["nov"]["dha_ms"]
+    phi_ms = _rho_ms(k1["dha_split_ms"]) - _rho_ms(rec["nophi"]["dha_split_ms"])
+    k1["dha_attribution"] = {"v_ms": v_ms, "v_share": v_ms / k1["dha_ms"],
+                             "phi_product_ms": phi_ms,
+                             "phi_product_share": phi_ms / k1["dha_ms"]}
+    print(f"  K1 at DHA ({k1['dha_ms']:.4f} ms): V = K1 - nov {v_ms:.4f} ms "
+          f"({v_ms / k1['dha_ms']:.1%}); phi_D product with D's staging = "
+          f"K1's rho kernel - nophi's {phi_ms:.4f} ms "
+          f"({phi_ms / k1['dha_ms']:.1%}); whole calls K1 - nophi "
+          f"{k1['dha_ms'] - rec['nophi']['dha_ms']:.4f} ms", flush=True)
+    _phase("3d nophi and nov", t0, "nophi and nov match their plain "
+           "versions at every GGA shape of phase 3, with K1's memory; nov's "
+           "V is zero and its E is K1's")
+
+
 def phase_variants(cases, rec):
-    """K1base and the ablations but phi3 (GGA body) and split2 (both
-    bodies), the four-kernel pipeline, at benzene and DHA against their
-    plain versions; nov's V exactly zero; times in the GGA body."""
+    """K1base, noprod and nofunc (GGA body) and split2 (both bodies), the
+    four-kernel pipeline, at benzene and DHA against their plain versions;
+    times in the GGA body."""
     from quantum_compute_dft_tpu_torch.engine.fused_xc import (
         ABLATIONS,
         VARIANTS,
@@ -608,21 +674,19 @@ def phase_variants(cases, rec):
         if label not in TIMED:
             continue
         kids = ("split2",)
-        if fn.needs_grad:  # phi3 runs K3's kernels and is checked in 3c
+        if fn.needs_grad:  # the ablations on K1's kernels are in 3c and 3d
             kids = ("K1base", "split2", *(
                 a for a in ABLATIONS if route(fn, ablate=a)[0] == "pipeline"))
         for kid in kids:
             variant = VARIANTS[kid]
             tol_v = (TOL_NOPROD_V if kid == "noprod" else TOL_ABLATE_V
                      if kid in ABLATIONS else TOL_PLAIN)
-            v = _compare(label, kid, case, rec, variant, (TOL_PLAIN, tol_v),
-                         None, v_scaled=kid in ABLATIONS)
-            if kid == "nov" and bool(v.any()):
-                raise AssertionError(f"nov {label}: V is not zero")
+            _compare(label, kid, case, rec, variant, (TOL_PLAIN, tol_v),
+                     None, v_scaled=kid in ABLATIONS)
             if fn.needs_grad:
                 _time(kid, label, case, rec, TIMED[label], variant)
-    _phase("3d K1 variants", t0, "K1base, the ablations and split2 match "
-           "their plain versions at benzene and DHA; nov's V is zero")
+    _phase("3e the four-kernel pipeline", t0, "K1base, noprod, nofunc and "
+           "split2 match their plain versions at benzene and DHA")
 
 
 def _golden_row(molecule, functional):
@@ -1466,6 +1530,10 @@ def phase_sweep():
                                  f"vs plain {row['e_xc_plain']}")
     if [r["variant"] for r in rows] != list(fused_xc.VARIANTS):
         raise AssertionError("the sweep did not run every variant")
+    bases = {r["variant"]: r["base"] for r in rows}
+    if any(bases[k] != "K1" for k in ("K3", "phi3", "nophi", "nov")):
+        raise AssertionError(f"sweep bases {bases}: the rows on K1's "
+                             "kernels are read against K1")
     if launches != expect:
         raise AssertionError(f"sweep launches {launches}, expected one per "
                              f"kernel call: {expect}")
@@ -1484,6 +1552,7 @@ def main() -> int:
     dev = torch.device("cuda")
     rec, cases = phase_kernels(dev)
     phase_k3(cases, rec)
+    phase_k1_ablations(cases, rec)
     phase_variants(cases, rec)
     del cases
     torch.cuda.empty_cache()

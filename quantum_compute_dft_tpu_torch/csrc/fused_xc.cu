@@ -1,10 +1,10 @@
 // Fused f32 XC build (E_xc, V_xc) for Hopper (sm_90a): kernels K1 (GGA body:
 // PBE, B3LYP) and K2 (LDA body: LDA, and HF through the zero functional), K3
 // (either body with phi_D as the 3-pass bf16 split, the TPU kernel's
-// phi_split) and the ablation phi3 (K3's GGA body) on K1's and K2's kernels,
-// and the other ablation and reduction variants, which run on the
-// four-kernel pipeline that was K1's design until it was redesigned (K1base
-// below).
+// phi_split) and the ablations phi3 (K3's GGA body), nophi (no phi_D
+// product) and nov (no V) on K1's and K2's kernels, and the ablations noprod
+// and nofunc and the split2 reduction, which run on the four-kernel pipeline
+// that was K1's design until it was redesigned (K1base below).
 //
 // Replaces quantum_compute_dft_tpu/engine/pallas_xc.py::_make_kernel (entered
 // through xc_step_pallas_packed / xc_step_pallas).  Same arithmetic, not the
@@ -19,8 +19,8 @@
 //   V   = AO B ;  V_out = (V + V^T) / 2
 //
 // The four-kernel pipeline: K1base (the GGA body as K1 ran it before its
-// redesign, kept as the base the ablations are timed against), the
-// ablations nophi, noprod, nofunc and nov, split2, and K3 with split2.
+// redesign, kept as the base noprod and nofunc are timed against), the
+// ablations noprod and nofunc, split2, and K3 with split2.
 // What bounds them on this card: two products of 2 npad^2 FLOPs per point
 // (phi_D and V) in plain FP32 FMA (K3: phi_D on bf16 tensor cores): at DHA
 // (npad 152, ~635k points) ~29 GFLOP each against 67 TFLOP/s of FP32 FMA;
@@ -133,6 +133,25 @@
 // fragments.  No phi_D or B^T plane exists.  The f32 V of the plain version
 // is computed as K1's and K2's 3 x TF32 V.
 //
+// The ablations nophi (pallas_xc.py:219-220, phi_D := AO) and nov (:262, no
+// B^T and no V: V = 0) exist to attribute K1's time to its two products, so
+// they run K1's own kernels through fused_xc_tc's mode word: K1 - nov is
+// V, and K1's rho kernel - nophi's is the phi_D product with D's staging.
+// nophi is the rho kernels' third product mode, kPhiAo: no density is
+// padded or staged (no xc_pad_dm_kernel, no D ring, no resident D, no k
+// steps) and each pass's accumulators are filled from the staged AO tile at
+// the C fragment positions the fold reads, so the fold, the functional, V
+// and the reduce run as K1's.  It keeps K1's AO stride and K1's choice of
+// resident or streaming kernel at each npad (without D the resident one
+// would fit at any npad, but the subtraction needs one pipeline); the
+// streaming kernel keeps its steps, which then only stage AO rows, since a
+// second loop for one ablation is more code than its barriers cost.  What
+// bounds nophi's rho kernel is reading AO and the three gradient planes
+// once (1.54 GB at DHA, 0.46 ms at 3.35 TB/s).  nov (kTf32x3 | kTcNoV) is
+// the pad and K1's rho kernel (it still writes s and u), then V as exact
+// zeros and one reduce block for E, which sums the same partials in the
+// same order as K1's, so its E is K1's bit for bit.
+//
 // No float atomics anywhere: every sum runs in the same order on every call,
 // so SCF trajectories are reproducible run to run.  The chunks (the wrapper's
 // for K1base, the variants and K2; fused_xc_tc_v_chunk's for K1) keep tiles
@@ -161,16 +180,15 @@ constexpr int kReduceBlock = 256;
 constexpr int kTkSplit = kTk + 8;  // bf16 row stride of K3's split stages
 
 // The variant word of fused_xc (engine/fused_xc.py builds it).  kPhiSplit
-// and kNoPhi choose how phi_D is formed; at most one of the others changes
-// the per-point pass.  kNoPhi..kNoV are ablations of the GGA body (results
-// wrong by design: each removes one phase so that its time can be read off).
+// chooses how phi_D is formed; at most one of the others changes the
+// per-point pass.  kNoProd and kNoFunc are ablations of the GGA body
+// (results wrong by design: each removes one phase so that its time can be
+// read off; nophi and nov run fused_xc_tc).
 constexpr int kPhiSplit = 1;  // K3: phi_D as the 3-pass bf16 split
-constexpr int kNoPhi = 2;     // phi_D := AO (a copy of the plane)
 constexpr int kNoProd = 4;    // rho = sum phi_D, grad rho_k = 2 sum dAO_k
 constexpr int kNoFunc = 8;    // e = rho, vrho = rho, vsigma = sigma
-constexpr int kNoV = 16;      // no B^T, no V (V = 0); E as in K1
 constexpr int kSplit2 = 32;   // row sums as sum bf16(x) + sum bf16(x - bf16(x))
-constexpr int kPointBits = kNoProd | kNoFunc | kNoV | kSplit2;
+constexpr int kPointBits = kNoProd | kNoFunc | kSplit2;
 
 // acc += a_s^T b_s over one stage: 16 x 16 threads, 4 x 4 outputs each at
 // row = ty + 16 i, col = tx + 16 j.  The stage's 32 products are summed
@@ -438,12 +456,18 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 constexpr int kRhoCols = 64;                 // grid points of a rho column tile
 constexpr int kRhoColStride = kRhoCols + 8;  // AO tile row stride (floats)
 // The rho kernels' product modes (fused_xc_tc's mode): 3 x TF32 on
-// m16n8k8 (K1, K2), or the 3-pass bf16 split on m16n8k16 (K3 and phi3:
-// pallas_xc.py's mm_phi).  The bf16 A fragment pairs two nu rows of the AO
-// tile, so its row stride is 68 (a warp's loads at rows 2t, 2t + 1 hit
-// banks 8t + g) where TF32's single rows want 72.
+// m16n8k8 (K1, K2), the 3-pass bf16 split on m16n8k16 (K3 and phi3:
+// pallas_xc.py's mm_phi), or no product at all (the ablation nophi: phi_D
+// := AO, taken from the staged AO tile; no density is read).  The bf16 A
+// fragment pairs two nu rows of the AO tile, so its row stride is 68 (a
+// warp's loads at rows 2t, 2t + 1 hit banks 8t + g) where TF32's single
+// rows want 72; kPhiAo keeps K1's 72, so that its fold reads as K1's does.
 constexpr int kTf32x3 = 0;
 constexpr int kBf16x3 = 1;
+constexpr int kPhiAo = 2;
+// fused_xc_tc's mode word: a product mode, or kTf32x3 with this bit for the
+// ablation nov (K1's rho kernel and the E sum; no V kernel, V = 0)
+constexpr int kTcNoV = 4;
 __host__ __device__ constexpr int rho_col_stride(int mode) {
   return mode == kBf16x3 ? kRhoCols + 4 : kRhoColStride;
 }
@@ -496,8 +520,10 @@ __host__ __device__ inline int rho_pass_tiles(int npad) {
 
 // one ring stage of the streaming rho kernel's D slabs, in floats: per * 8
 // rows of 32 nu at stride 36 floats (TF32), or the hi and lo rows at stride
-// 40 bf16 (20 words: a warp's B fragment pairs hit banks 20 g + t)
+// 40 bf16 (20 words: a warp's B fragment pairs hit banks 20 g + t); none
+// for kPhiAo
 __host__ __device__ inline size_t rho_slab_floats(int npad, int mode) {
+  if (mode == kPhiAo) return 0;
   return (size_t)rho_pass_tiles(npad) * 8 *
          (mode == kBf16x3 ? kTkSplit : kSlabStride);
 }
@@ -514,14 +540,19 @@ __host__ __device__ constexpr int rho_res_bf16_stride(int npad) {
   return 2 * ((npad / 2) | 4);
 }
 
-// resident-D rho kernel: D at row stride npad + 4 (= 4 mod 8: a warp's B
+// the resident D's floats: D at row stride npad + 4 (= 4 mod 8: a warp's B
 // fragment loads hit 32 distinct banks), or its hi and lo planes at
-// rho_res_bf16_stride (as many bytes a row within 16), and one AO tile per
-// group
+// rho_res_bf16_stride (as many bytes a row within 16); none for kPhiAo
+__host__ __device__ inline size_t rho_res_d_floats(int npad, int mode) {
+  return mode == kPhiAo    ? 0
+         : mode == kBf16x3 ? (size_t)npad * rho_res_bf16_stride(npad)
+                           : (size_t)npad * (npad + 4);
+}
+
+// resident-D rho kernel: the resident D and one AO tile per group
 __host__ __device__ inline size_t rho_res_smem(int npad, int mode) {
-  const size_t d = mode == kBf16x3 ? (size_t)npad * rho_res_bf16_stride(npad)
-                                   : (size_t)npad * (npad + 4);
-  return sizeof(float) * (d + 2 * (size_t)npad * rho_col_stride(mode));
+  return sizeof(float) * (rho_res_d_floats(npad, mode) +
+                          2 * (size_t)npad * rho_col_stride(mode));
 }
 
 __host__ __device__ inline size_t lda_v_smem(int npad) {
@@ -762,6 +793,29 @@ __device__ __forceinline__ void rho_fold(const float* ao_s, int p0, int mu0,
   }
 }
 
+// kPhiAo (nophi: phi_D := AO): the accumulators of a pass straight from the
+// staged AO tile, at the C fragment positions rho_fold reads (rows mu0 + 8 j
+// and + 1, points p0 + 16 i and + 8), in place of the product
+template <int CS>
+__device__ __forceinline__ void rho_phi_ao(const float* ao_s, int p0, int mu0,
+                                           int mine,
+                                           float (&acc)[2][kRhoNb][4]) {
+#pragma unroll
+  for (int j = 0; j < kRhoNb; ++j) {
+    if (j < mine) {
+      const float* a0 = ao_s + (size_t)(mu0 + 8 * j) * CS + p0;
+      const float* a1 = a0 + CS;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        acc[i][j][0] = a0[16 * i];
+        acc[i][j][1] = a1[16 * i];
+        acc[i][j][2] = a0[16 * i + 8];
+        acc[i][j][3] = a1[16 * i + 8];
+      }
+    }
+  }
+}
+
 // A finished pass's sums into red_s[q][wn][point]: over the four lanes of a
 // row group by shuffles, then lane t == 0 stores them (first pass) or adds
 // them (later passes).  Each entry has one owner, so passes need no barrier,
@@ -856,7 +910,9 @@ __device__ __forceinline__ void rho_finish(float (*red_s)[4][kRhoCols],
 // AO rows of each 32-deep stage arrive with the first pass's slab and stay,
 // for the later passes and the epilogue.  npad 384 takes 3 passes, npad <=
 // 160 one.  MODE: the product (kTf32x3: dm is the f32 padded density;
-// kBf16x3: dm holds its bf16 hi and lo planes, xc_split_dm_kernel).
+// kBf16x3: dm holds its bf16 hi and lo planes, xc_split_dm_kernel; kPhiAo:
+// dm is not read, the ring holds no slab and the steps only stage AO rows,
+// each pass filled from the tile at its last step).
 template <int KIND, int MODE = kTf32x3>
 __global__ void __launch_bounds__(256, 2)
 xc_rho_kernel(int npad, int gpad, const float* __restrict__ dm,
@@ -898,7 +954,7 @@ xc_rho_kernel(int npad, int gpad, const float* __restrict__ dm,
                    src + (size_t)h * npad * npad +
                        (size_t)(base * 8 + r) * npad + k0 + c);
       }
-    } else {
+    } else if constexpr (MODE == kTf32x3) {
       const int kc = kw / 4;  // 16-byte pieces per D row
       for (int i = tid; i < rows * kc; i += 256) {
         const int r = i / kc, c = i % kc * 4;
@@ -937,21 +993,23 @@ xc_rho_kernel(int npad, int gpad, const float* __restrict__ dm,
           for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
     }
     const float* db = d_s + (step % kRhoStages) * slab;
+    const int mu0 = (base + first) * 8 + 2 * t;
     if constexpr (MODE == kBf16x3) {
       const __nv_bfloat16* bh = reinterpret_cast<const __nv_bfloat16*>(db) +
                                 (first * 8 + g) * kTkSplit + 2 * t;
       rho_stage_bf16<CS>(ao_s + (size_t)(k0 + 2 * t) * CS + p0, bh,
                          bh + (size_t)per * 8 * kTkSplit, kTkSplit,
                          min(kTk, npad - k0), mine, acc);
-    } else {
+    } else if constexpr (MODE == kTf32x3) {
       rho_stage(ao_s + (size_t)(k0 + t) * CS + p0,
                 db + (first * 8 + g) * kSlabStride + t, kSlabStride,
                 min(kTk, npad - k0), mine, acc);
+    } else if (ks == nks - 1) {  // every AO row is in
+      rho_phi_ao<CS>(ao_s, p0, mu0, mine, acc);
     }
     if (ks == nks - 1)
-      rho_pass_end<NQ, CS>(ao_s, p0, (base + first) * 8 + 2 * t, mine, acc,
-                           gp, (size_t)col0 + p0, gpad, red_s, wn, t,
-                           base == 0);
+      rho_pass_end<NQ, CS>(ao_s, p0, mu0, mine, acc, gp, (size_t)col0 + p0,
+                           gpad, red_s, wn, t, base == 0);
   }
   rho_finish<KIND>(red_s, tid, blockIdx.x, 0, gpad, wt, s_out, u_out, e_part);
 }
@@ -963,7 +1021,8 @@ xc_rho_kernel(int npad, int gpad, const float* __restrict__ dm,
 // grid), staging the tile's AO with one cp.async wait and its own barrier,
 // so no barrier or D copy sits inside the product.  Group 0's first tile
 // loads with D, group 1's after, so one group's loads, fold and functional
-// overlap the other's products.  Same products and sums as xc_rho_kernel.
+// overlap the other's products.  Same products and sums as xc_rho_kernel
+// (kPhiAo: no D is staged, and each pass is filled from the AO tile).
 template <int KIND, int MODE = kTf32x3>
 __global__ void __launch_bounds__(kResThreads, 1)
 xc_rho_res_kernel(int npad, int gpad, const float* __restrict__ dm,
@@ -974,7 +1033,8 @@ xc_rho_res_kernel(int npad, int gpad, const float* __restrict__ dm,
   constexpr int CS = rho_col_stride(MODE);
   extern __shared__ __align__(16) float smem[];
   __shared__ float red_s[2][NQ][4][kRhoCols];
-  // TF32: D at [npad][npad + 4] floats; bf16: [hi, lo][npad][dsb]
+  // TF32: D at [npad][npad + 4] floats; bf16: [hi, lo][npad][dsb]; kPhiAo:
+  // none
   const int ds = MODE == kBf16x3 ? rho_res_bf16_stride(npad) : npad + 4;
   const float* d_s = smem;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -982,7 +1042,7 @@ xc_rho_res_kernel(int npad, int gpad, const float* __restrict__ dm,
   const int g = lane / 4, t = lane % 4;
   const int wm = wl % 2, wn = wl / 2;
   const int p0 = wm * 32 + g;
-  float* ao_s = smem + (size_t)npad * ds + (size_t)grp * npad * CS;
+  float* ao_s = smem + rho_res_d_floats(npad, MODE) + (size_t)grp * npad * CS;
   const int ntile = gpad / kRhoCols, ntn = npad / 8;
   const int per = rho_pass_tiles(npad);
 
@@ -1002,7 +1062,7 @@ xc_rho_res_kernel(int npad, int gpad, const float* __restrict__ dm,
       cp_async16(dst + ((size_t)h * npad + r) * ds + c,
                  src + (size_t)h * npad * npad + (size_t)r * npad + c);
     }
-  } else {
+  } else if constexpr (MODE == kTf32x3) {
     for (int i = tid; i < npad * (npad / 4); i += kResThreads) {
       const int r = i / (npad / 4), c = i % (npad / 4) * 4;
       cp_async16(smem + (size_t)r * ds + c, dm + (size_t)r * npad + c);
@@ -1024,6 +1084,7 @@ xc_rho_res_kernel(int npad, int gpad, const float* __restrict__ dm,
     for (int base = 0; base < ntn; base += per) {
       int first, mine;
       pass_share(min(per, ntn - base), wn, first, mine);
+      const int mu0 = (base + first) * 8 + 2 * t;
       float acc[2][kRhoNb][4] = {};
       if constexpr (MODE == kBf16x3) {
         const __nv_bfloat16* bh = reinterpret_cast<const __nv_bfloat16*>(d_s) +
@@ -1032,15 +1093,17 @@ xc_rho_res_kernel(int npad, int gpad, const float* __restrict__ dm,
           rho_stage_bf16<CS>(ao_s + (size_t)(k0 + 2 * t) * CS + p0, bh + k0,
                              bh + (size_t)npad * ds + k0, ds,
                              min(kTk, npad - k0), mine, acc);
-      } else {
+      } else if constexpr (MODE == kTf32x3) {
         for (int k0 = 0; k0 < npad; k0 += kTk)
           rho_stage(ao_s + (size_t)(k0 + t) * CS + p0,
                     d_s + (size_t)((base + first) * 8 + g) * ds + k0 + t, ds,
                     min(kTk, npad - k0), mine, acc);
+      } else {
+        rho_phi_ao<CS>(ao_s, p0, mu0, mine, acc);
       }
-      rho_pass_end<NQ, CS>(ao_s, p0, (base + first) * 8 + 2 * t, mine, acc,
-                           gp, (size_t)tile * kRhoCols + p0, gpad,
-                           red_s[grp], wn, t, base == 0);
+      rho_pass_end<NQ, CS>(ao_s, p0, mu0, mine, acc, gp,
+                           (size_t)tile * kRhoCols + p0, gpad, red_s[grp], wn,
+                           t, base == 0);
     }
     rho_finish<KIND>(red_s[grp], gtid, tile, 1 + grp, gpad, wt, s_out, u_out,
                      e_part);
@@ -1516,18 +1579,16 @@ xc_point_kernel(int npad, int gpad, const float* __restrict__ aot,
   }
   if (tid == 0) e_part[blockIdx.x] = kSplit ? red_s[0] + red_l[0] : red_s[0];
 
-  if constexpr ((VAR & kNoV) == 0) {
-    // B^T column: padded rows have AO = dAO = 0 and padded points w = 0, so
-    // both contribute exact zeros to V
-    const float wvr = w * vr;
-    const float wvs = 2.f * w * vs;
-    const float ux = wvs * grx, uy = wvs * gry, uz = wvs * grz;
-    for (int mu = 0; mu < npad; ++mu) {
-      const size_t o = (size_t)mu * gpad + g;
-      float b = wvr * aot[o];
-      if constexpr (kGrad) b = b + ux * gx[o] + uy * gy[o] + uz * gz[o];
-      phi_bt[o] = b;
-    }
+  // B^T column: padded rows have AO = dAO = 0 and padded points w = 0, so
+  // both contribute exact zeros to V
+  const float wvr = w * vr;
+  const float wvs = 2.f * w * vs;
+  const float ux = wvs * grx, uy = wvs * gry, uz = wvs * grz;
+  for (int mu = 0; mu < npad; ++mu) {
+    const size_t o = (size_t)mu * gpad + g;
+    float b = wvr * aot[o];
+    if constexpr (kGrad) b = b + ux * gx[o] + uy * gy[o] + uz * gz[o];
+    phi_bt[o] = b;
   }
 }
 
@@ -1669,7 +1730,6 @@ cudaError_t launch_point_var(int var, int npad, int gpad, const float* aot,
     switch (var & kPointBits) {
       case kNoProd: return launch_point<KIND, kNoProd>(npad, gpad, aot, gx, gy, gz, wt, phi_bt, e_part, stream);
       case kNoFunc: return launch_point<KIND, kNoFunc>(npad, gpad, aot, gx, gy, gz, wt, phi_bt, e_part, stream);
-      case kNoV: return launch_point<KIND, kNoV>(npad, gpad, aot, gx, gy, gz, wt, phi_bt, e_part, stream);
       default: break;
     }
   }
@@ -1691,7 +1751,9 @@ cudaError_t allow_smem(const void* kernel, size_t bytes, size_t (&done)[64]) {
 
 // The rho pass: resident D where it fits in shared memory beside the
 // kernel's static scratch (npad <= 176 for K2, <= 168 for K1, in either
-// mode), else streaming D
+// product mode), else streaming D.  kPhiAo takes K1's choice, though
+// without D the resident kernel would fit at any npad: nophi is read
+// against K1, so both run the same kernel at each npad.
 template <int KIND, int MODE>
 cudaError_t launch_rho(int npad, int gpad, const float* dm, const float* aot,
                        const GradPlanes& gp, const float* wt, float* s,
@@ -1700,7 +1762,8 @@ cudaError_t launch_rho(int npad, int gpad, const float* dm, const float* aot,
   const int ntile = gpad / kRhoCols;
   size_t smem = rho_res_smem(npad, MODE);
   cudaError_t err;
-  if (smem <= kBlockSmem - 2 * rho_red_smem(NQ)) {
+  if (rho_res_smem(npad, MODE == kPhiAo ? kTf32x3 : MODE) <=
+      kBlockSmem - 2 * rho_red_smem(NQ)) {
     static int nsm[64] = {};
     int dev;
     err = cudaGetDevice(&dev);
@@ -1775,9 +1838,9 @@ extern "C" {
 // dm (npad, npad), aot/gx/gy/gz/phi_bt (npad, gpad), wt (gpad),
 // e_part (gpad / 128), v_part (ceil(gpad / chunk), ldv, ldv) with
 // ldv = 64 ceil(npad / 64), v_out (nao, nao), e_out (1); gx/gy/gz may be
-// null for kinds 0 and 3.  variant: 0 for K1, else the k* bits above
-// (kPhiSplit and kNoPhi exclusive, at most one point bit, the ablations
-// for kinds 1 and 2 only); variant 0 is K1base (kinds 1 and 2); K1 and K2
+// null for kinds 0 and 3.  variant: 0 for K1, else the k* bits above (at
+// most one point bit, the ablations for kinds 1 and 2 only); variant 0 is
+// K1base (kinds 1 and 2); K1, K2, K3 without split2, phi3, nophi and nov
 // are fused_xc_tc.
 // Returns the CUDA error code of the launches (0 on success).
 int fused_xc(int kind, int variant, int nao, int npad, int gpad, int chunk,
@@ -1789,10 +1852,9 @@ int fused_xc(int kind, int variant, int nao, int npad, int gpad, int chunk,
   const int point = variant & kPointBits;
   if (nao < 1 || nao > npad || npad % 8 != 0 || gpad % kPack != 0 ||
       chunk <= 0 || chunk % kPack != 0 || kind < 0 || kind > 3 ||
-      (variant & ~(kPhiSplit | kNoPhi | kPointBits)) != 0 ||
-      ((variant & kPhiSplit) && (variant & kNoPhi)) ||
+      (variant & ~(kPhiSplit | kPointBits)) != 0 ||
       (point & (point - 1)) != 0 ||
-      ((variant & (kNoPhi | kNoProd | kNoFunc | kNoV)) && kind != 1 && kind != 2) ||
+      ((variant & (kNoProd | kNoFunc)) && kind != 1 && kind != 2) ||
       (variant == 0 && (kind == 0 || kind == 3)))
     return (int)cudaErrorInvalidValue;
   const int ntile = (npad + kTile - 1) / kTile;
@@ -1800,10 +1862,7 @@ int fused_xc(int kind, int variant, int nao, int npad, int gpad, int chunk,
   const int nchunk = (gpad + chunk - 1) / chunk;
 
   cudaError_t err;
-  if (variant & kNoPhi) {
-    err = cudaMemcpyAsync(phi_bt, aot, sizeof(float) * npad * (size_t)gpad,
-                          cudaMemcpyDeviceToDevice, stream);
-  } else if (variant & kPhiSplit) {
+  if (variant & kPhiSplit) {
     xc_phi_split_kernel<<<dim3(gpad / kTile, ntile), 256, 0, stream>>>(
         npad, gpad, dm, aot, phi_bt);
     err = cudaGetLastError();
@@ -1820,14 +1879,6 @@ int fused_xc(int kind, int variant, int nao, int npad, int gpad, int chunk,
     default: err = launch_point_var<3>(variant, npad, gpad, aot, gx, gy, gz, wt, phi_bt, e_part, stream); break;
   }
   if (err != cudaSuccess) return (int)err;
-  if (variant & kNoV) {  // V stays zero; the one reduce block sums E
-    err = cudaMemsetAsync(v_out, 0, sizeof(float) * nao * (size_t)nao, stream);
-    if (err != cudaSuccess) return (int)err;
-    xc_reduce_kernel<false, float><<<1, kReduceBlock, 0, stream>>>(
-        nao, nchunk, ldv, gpad / kPointBlock, 1.f, v_part, e_part, v_out,
-        e_out);
-    return (int)cudaGetLastError();
-  }
   xc_v_partial_kernel<<<dim3(ntile, ntile, nchunk), dim3(16, 16), 0, stream>>>(
       npad, gpad, chunk, ldv, aot, phi_bt, v_part);
   err = cudaGetLastError();
@@ -1840,7 +1891,11 @@ int fused_xc(int kind, int variant, int nao, int npad, int gpad, int chunk,
 
 // K1 (kinds 1: PBE, 2: B3LYP) and K2 (kinds 0: LDA, 3: HF) with mode
 // kTf32x3; K3 (either body) and the ablation phi3 (the GGA body, the same
-// computation as K3's) with mode kBf16x3, phi_D as the 3-pass bf16 split.
+// computation as K3's) with mode kBf16x3, phi_D as the 3-pass bf16 split;
+// the GGA body's ablations nophi with mode kPhiAo (K1's kernels, phi_D :=
+// AO: no density is read, dm64 and dm may be null) and nov with mode
+// kTf32x3 | kTcNoV (K1's rho kernel and E sum, no V kernel: V is written
+// as exact zeros and v_part may be null).
 // Shape contract (checked by the Python wrapper): 1 <= nao <= npad <= 384,
 // npad % 8 == 0, gpad % 1024 == 0, chunk a positive multiple of 16 (GGA
 // body: fused_xc_tc_v_chunk's) or 32 (LDA body); dm64 (nao, nao) f64 and
@@ -1858,9 +1913,11 @@ int fused_xc_tc(int kind, int mode, int nao, int npad, int gpad, int chunk,
                 void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const bool gga = kind == 1 || kind == 2;
+  const bool nov = mode == (kTf32x3 | kTcNoV);
   if (nao < 1 || nao > npad || npad % 8 != 0 || npad > 384 ||
       gpad % kPack != 0 || chunk <= 0 || kind < 0 || kind > 3 ||
-      (mode != kTf32x3 && mode != kBf16x3) ||
+      (mode != kTf32x3 && mode != kBf16x3 &&
+       !(gga && (mode == kPhiAo || nov))) ||
       chunk % (gga ? kGSlab : kTk) != 0 ||
       (gga && (!gx || !gy || !gz || !u)))
     return (int)cudaErrorInvalidValue;
@@ -1874,6 +1931,11 @@ int fused_xc_tc(int kind, int mode, int nao, int npad, int gpad, int chunk,
     if (err == cudaSuccess)
       err = launch_rho_kind<kBf16x3>(kind, npad, gpad, dm, aot, gp, wt, s, u,
                                      e_part, stream);
+  } else if (mode == kPhiAo) {  // the GGA kinds only (checked above)
+    err = kind == 1 ? launch_rho<1, kPhiAo>(npad, gpad, nullptr, aot, gp, wt,
+                                            s, u, e_part, stream)
+                    : launch_rho<2, kPhiAo>(npad, gpad, nullptr, aot, gp, wt,
+                                            s, u, e_part, stream);
   } else {
     xc_pad_dm_kernel<<<pad_blocks, 256, 0, stream>>>(nao, npad, dm64, dm);
     err = cudaGetLastError();
@@ -1884,6 +1946,14 @@ int fused_xc_tc(int kind, int mode, int nao, int npad, int gpad, int chunk,
   if (err != cudaSuccess) return (int)err;
   const int T = (npad + kVTile - 1) / kVTile;
   const int ldv = T * kVTile;
+  if (nov) {  // V = 0; one reduce block sums E as K1's last block does
+    err = cudaMemsetAsync(v_out, 0, sizeof(double) * nao * (size_t)nao,
+                          stream);
+    if (err != cudaSuccess) return (int)err;
+    xc_reduce_kernel<true, double><<<1, kReduceBlock, 0, stream>>>(
+        nao, 0, ldv, gpad / kRhoCols, 0.5f, nullptr, e_part, v_out, e_out);
+    return (int)cudaGetLastError();
+  }
   const int nchunk = (gpad + chunk - 1) / chunk;
   if (gga) {
     const int GT = gga_group_tiles(T), NG = (T + GT - 1) / GT;

@@ -15,15 +15,17 @@ them all):
     "nophi" (phi_D := AO), "phi3" (phi_D through K3), "noprod" (row sums
     without the products), "nofunc" (e = rho, vrho = rho, vsigma = sigma),
     "nov" (no B^T and no V: V = 0).  Wrong results by design: they exist
-    to attribute the kernel's time to its phases;
+    to attribute the kernel's time to its phases (nophi, phi3 and nov run
+    K1's kernels, so K1 minus each is the time of what it removes);
   * ``reduce="split2"``: the Pallas default's 2-pass bf16 row sums of rho,
     grad rho and E; the default "f32" is ``_ENV_VPU_REDUCE``'s plain sum.
 
 K1 and K2 (the GGA and LDA bodies with no variant, replacing
 ``pallas_xc.py:201-265`` and ``:269-291``) have a design of their own for
 Hopper (``csrc/fused_xc.cu``'s header note), one C entry (``fused_xc_tc``)
-of three kernels, which K3 (either body, without split2) and the ablation
-phi3 (K3's GGA body) share with a product mode of their own (``route``):
+of three kernels, which K3 (either body, without split2) and the ablations
+phi3 (K3's GGA body), nophi and nov share, each with a mode word of its own
+(``route``):
 
   * ``xc_rho_kernel`` (or, where D fits in shared memory, npad <= 176 for
     K2 and <= 168 for K1, the persistent ``xc_rho_res_kernel``): phi_D on
@@ -47,13 +49,16 @@ at HIGHEST, since a coarser phi_D costs SCF cycles
 (``pallas_xc.py:131-141``).  K3 and phi3 form phi_D as ``mm_phi`` does,
 the 3-pass bf16 split (D_h AO_h + D_h AO_l + D_l AO_h, f32 sums) on
 m16n8k16 bf16 ``mma.sync``, D split once per call, and then run K1's and
-K2's fold, functional, V and reduce as they are.  The old design (FP32
-FMA tiles, phi_D and B^T planes in HBM, all of V) measured 5.4-5.8 ms (K1)
-and 4.5-5.0 ms (K2) at DHA; it stays as the four-kernel pipeline of
-K1base (``base=True``: K1 on it, the base the other ablations subtract
-from in ``tools/torch_xc_sweep.py``), the ablations nophi, noprod, nofunc
-and nov, split2, and K3 with split2.  What bounds the new kernels is in
-the header note and ``PERF.md``.
+K2's fold, functional, V and reduce as they are.  nophi runs K1's
+kernels with no product (the rho kernel fills its accumulators from the
+staged AO tile; no density is read), nov K1's rho kernel and the E sum
+with no V kernel (V written as zeros).  The old design (FP32 FMA tiles,
+phi_D and B^T planes in HBM, all of V) measured 5.4-5.8 ms (K1) and
+4.5-5.0 ms (K2) at DHA; it stays as the four-kernel pipeline of K1base
+(``base=True``: K1 on it, the base noprod, nofunc and split2 are read
+against in ``tools/torch_xc_sweep.py``), the ablations noprod and nofunc,
+split2, and K3 with split2.  What bounds the new kernels is in the header
+note and ``PERF.md``.
 
 The SCF passes no variant.  This module builds the kernels at first use
 (nvcc, keyed by a hash of the sources), binds them with ctypes, and keeps
@@ -119,16 +124,19 @@ LDA_V_PART_FLOATS = 8 << 20
 
 ABLATIONS = ("nophi", "phi3", "noprod", "nofunc", "nov")
 REDUCTIONS = ("f32", "split2")
-# the variant word of the C entry (csrc/fused_xc.cu's k* constants)
-_VAR_BITS = {"phi_split": 1, "nophi": 2, "phi3": 1, "noprod": 4,
-             "nofunc": 8, "nov": 16, "split2": 32}
-# the product modes of fused_xc_tc's rho kernels (csrc/fused_xc.cu's
-# kTf32x3: 3 x TF32; kBf16x3: the 3-pass bf16 split)
-TF32X3, BF16X3 = 0, 1
+# the variant word of the four-kernel entry (csrc/fused_xc.cu's k* constants)
+_VAR_BITS = {"phi_split": 1, "noprod": 4, "nofunc": 8, "split2": 32}
+# the mode word of fused_xc_tc (csrc/fused_xc.cu): the rho kernels' product
+# (kTf32x3: 3 x TF32; kBf16x3: the 3-pass bf16 split; kPhiAo: none, phi_D
+# := AO), and kTcNoV, no V kernel (V = 0)
+TF32X3, BF16X3, PHI_AO, NO_V = 0, 1, 2, 4
+# the variants fused_xc_tc runs, by launch name -> mode word
+_TC_MODES = {"K1": TF32X3, "K2": TF32X3, "K3": BF16X3, "phi3": BF16X3,
+             "nophi": PHI_AO, "nov": TF32X3 | NO_V}
 
 # each variant alone, by the LAUNCHES name it counts under -> the keywords
 # of fused_xc (K1: none; K1base: K1 on the four-kernel pipeline, the
-# ablations' base; tools/torch_xc_sweep.py times them all)
+# base of noprod and nofunc; tools/torch_xc_sweep.py times them all)
 VARIANTS = {"K1": {}, "K1base": {"base": True}, "K3": {"phi_split": True},
             **{a: {"ablate": a} for a in ABLATIONS},
             "split2": {"reduce": "split2"}}
@@ -311,16 +319,15 @@ def launch_names(functional: Functional, phi_split: bool = False,
 
 def route(functional: Functional, phi_split: bool = False, ablate: str = "",
           reduce: str = "f32", base: bool = False) -> tuple[str, object]:
-    """Which C entry runs a variant: ("tc", mode) for fused_xc_tc, K1/K2
-    with the 3 x TF32 product (TF32X3) and K3 (without split2) and phi3
-    with the 3-pass bf16 split (BF16X3); ("pipeline", variant word) for
-    fused_xc's four kernels: K1base, the other ablations, split2 and K3
-    with split2.  Raises as launch_names does."""
+    """Which C entry runs a variant: ("tc", mode word) for fused_xc_tc,
+    K1/K2 with the 3 x TF32 product (TF32X3), K3 (without split2) and phi3
+    with the 3-pass bf16 split (BF16X3), nophi with no product (PHI_AO) and
+    nov with no V (TF32X3 | NO_V); ("pipeline", variant word) for
+    fused_xc's four kernels: K1base, noprod, nofunc, split2 and K3 with
+    split2.  Raises as launch_names does."""
     names = launch_names(functional, phi_split, ablate, reduce, base)
-    if names in (["K1"], ["K2"]):
-        return "tc", TF32X3
-    if names in (["K3"], ["phi3"]):
-        return "tc", BF16X3
+    if len(names) == 1 and names[0] in _TC_MODES:
+        return "tc", _TC_MODES[names[0]]
     return "pipeline", _variant_word(phi_split, ablate, reduce)
 
 
@@ -493,9 +500,10 @@ def _launch(functional: Functional, dm, aot, wt, grads, n: int,
 
 def _launch_tc(functional: Functional, dm, aot, wt, grads, n: int,
                name: str, mode: int):
-    """K1/K2 (mode TF32X3) and K3/phi3 (BF16X3): the density's f32 copy
-    (or its bf16 hi and lo planes), xc_rho(_res)_kernel, xc_gga_v_kernel
-    (GGA body) or xc_lda_v_kernel (LDA body), and the reduce, which writes E
+    """K1/K2 (mode TF32X3), K3/phi3 (BF16X3), nophi (PHI_AO) and nov
+    (TF32X3 | NO_V): the density's f32 copy (or its bf16 hi and lo planes;
+    none for nophi), xc_rho(_res)_kernel, xc_gga_v_kernel (GGA body; not
+    for nov) or xc_lda_v_kernel (LDA body), and the reduce, which writes E
     and V in f64; counted under `name`.  As little as possible runs on the
     host before the first launch."""
     npad, gpad = aot.shape
@@ -508,13 +516,16 @@ def _launch_tc(functional: Functional, dm, aot, wt, grads, n: int,
     else:
         chunk = lda_v_chunk(npad, gpad)
     ldv = -(-npad // LDA_V_TILE) * LDA_V_TILE
-    dm64 = dm.to(torch.float64).contiguous()
+    uses_dm = mode != PHI_AO
+    dm64 = dm.to(torch.float64).contiguous() if uses_dm else None
     # one scratch allocation: dm_p (npad, npad; in mode BF16X3 the hi and
-    # lo bf16 planes in the same bytes), s (gpad), u (3, gpad) for the GGA
-    # body, the E partials (gpad / 64), the V partials (nchunk, ldv, ldv);
-    # every piece is a multiple of 4 floats, so each starts 16-byte aligned
-    sizes = (npad * npad, gpad, 3 * gpad if gga else 0, gpad // RHO_COLS,
-             -(-gpad // chunk) * ldv * ldv)
+    # lo bf16 planes in the same bytes; none for nophi), s (gpad), u (3,
+    # gpad) for the GGA body, the E partials (gpad / 64), the V partials
+    # (nchunk, ldv, ldv; none for nov); every piece is a multiple of 4
+    # floats, so each starts 16-byte aligned
+    nv = 0 if mode & NO_V else -(-gpad // chunk) * ldv * ldv
+    sizes = (npad * npad if uses_dm else 0, gpad, 3 * gpad if gga else 0,
+             gpad // RHO_COLS, nv)
     scratch = torch.empty(sum(sizes), dtype=f32, device=dev)
     ptrs, at = [], scratch.data_ptr()
     for size in sizes:

@@ -5,7 +5,9 @@ counting, in-core (H2O) and above npad 64 (Decane npad 72, DHA npad 152);
 K1 and K2 (the GGA and LDA bodies on TF32 tensor cores) also against the
 f64 engine (relative dE and max dV 5e-5, the Pallas contract) at every
 shape from H2O to npad 384 (184 and 200 among them), and K3 and phi3 (the bf16 mode of the same
-kernels) there against the plain K3 and the f64 engine (3e-4, 3e-3).
+kernels) there against the plain K3 and the f64 engine (3e-4, 3e-3), and
+the ablations nophi and nov (K1's kernels with no product, and with no V
+kernel) there against their plain versions.
 Imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -q tests/test_torch_gpu.py
@@ -275,6 +277,33 @@ def test_cuda_k3_and_phi3_match_plain_and_f64(shape, npad, name, variant):
     assert float(torch.abs(v_k - v_64).max()) < 3e-3
     assert _peak_bytes(fn, dm, aot, wt, grads, n, **variant) <= _peak_bytes(
         fn, dm, aot, wt, grads, n)
+
+
+@pytest.mark.parametrize("shape,npad", TC_SHAPES)
+@pytest.mark.parametrize("ablate", ["nophi", "nov"])
+@pytest.mark.parametrize("name", ["GGA", "B3LYP"])
+def test_cuda_nophi_and_nov_run_on_k1_kernels(shape, npad, ablate, name):
+    """nophi (K1's kernels with no phi_D product: the rho kernel reads no
+    density) and nov (K1's rho kernel and E sum, no V kernel) at every
+    K1/K2 shape (resident and streaming rho kernels, npad 8 to 384):
+    against their plain versions (relative dE 1e-5, max dV 5e-5 of max(1,
+    max |V|), as the other ablations), bitwise over two calls, the launch
+    count, nov's V exactly zero and its E K1's bit for bit (the same rho
+    kernel and the same E sum), and no more device memory than K1's call on
+    the same planes."""
+    dev = _cuda()
+    fn = FUNCTIONALS[name]
+    dm, ao, w, grad = _tc_planes(shape, fn, dev)
+    n = dm.shape[0]
+    aot, wt, grads = fused_xc.pack_inputs(ao, w, grad, needs_grad=True)
+    assert aot.shape[0] == npad
+    _check_kernel(fn, dm, aot, wt, grads, n, ablate=ablate)
+    if ablate == "nov":
+        e_k, _ = fused_xc.fused_xc(fn, dm, aot, wt, grads, n, ablate="nov")
+        e_1, _ = fused_xc.fused_xc(fn, dm, aot, wt, grads, n)
+        assert torch.equal(e_k, e_1)
+    assert _peak_bytes(fn, dm, aot, wt, grads, n, ablate=ablate) <= \
+        _peak_bytes(fn, dm, aot, wt, grads, n)
 
 
 @pytest.mark.parametrize("npad", [8, 40, 72, 152, 160, 168, 184, 200, 384])

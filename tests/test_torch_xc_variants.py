@@ -214,21 +214,28 @@ def test_launch_names():
 
 
 def test_route():
-    """Which C entry each variant reaches: K1/K2 and K3/phi3 the tensor-core
-    entry (3 x TF32, the bf16 split), the rest the four-kernel pipeline with
-    its variant word."""
+    """Which C entry each variant reaches: K1/K2, K3/phi3, nophi and nov
+    the tensor-core entry (3 x TF32, the bf16 split, no product, no V);
+    only K1base, noprod, nofunc, split2 and K3 with split2 the four-kernel
+    pipeline with its variant word."""
     gga, lda = FUNCTIONALS["GGA"], FUNCTIONALS["LDA"]
     assert fused_xc.route(gga) == fused_xc.route(lda) == ("tc", fused_xc.TF32X3)
     for fn in (gga, lda):
         assert fused_xc.route(fn, phi_split=True) == ("tc", fused_xc.BF16X3)
     assert fused_xc.route(gga, ablate="phi3") == ("tc", fused_xc.BF16X3)
+    assert fused_xc.route(gga, ablate="nophi") == ("tc", fused_xc.PHI_AO)
+    assert fused_xc.route(gga, ablate="nov") == (
+        "tc", fused_xc.TF32X3 | fused_xc.NO_V)
     assert fused_xc.route(gga, phi_split=True, reduce="split2") == (
         "pipeline", 1 | 32)
     assert fused_xc.route(lda, reduce="split2") == ("pipeline", 32)
     assert fused_xc.route(gga, base=True) == ("pipeline", 0)
-    for a in ("nophi", "noprod", "nofunc", "nov"):
+    for a in ("noprod", "nofunc"):
         assert fused_xc.route(gga, ablate=a) == (
             "pipeline", fused_xc._VAR_BITS[a])
+    pipeline = {name for name, kw in fused_xc.VARIANTS.items()
+                if fused_xc.route(gga, **kw)[0] == "pipeline"}
+    assert pipeline == {"K1base", "noprod", "nofunc", "split2"}
 
 
 class _FakeLib:
@@ -256,11 +263,15 @@ class _FakeLib:
     ("GGA", {"ablate": "phi3"}, "phi3", 1),
     ("B3LYP", {}, "K1", 0),
     ("LDA", {}, "K2", 0),
+    ("B3LYP", {"ablate": "nophi"}, "nophi", 2),
+    ("GGA", {"ablate": "nov"}, "nov", 4),
 ])
 def test_launch_reaches_tensor_core_entry(monkeypatch, name, kw, launch,
                                           mode):
     """K3 (both bodies) and phi3 launch fused_xc_tc in the bf16 mode (1),
-    K1/K2 in the TF32 mode (0), one call, counted under their names; the
+    K1/K2 in the TF32 mode (0), nophi with no product (2: no density, so
+    no f64 copy and no padded-density scratch) and nov with the no-V bit
+    (4: no V partials), one call, counted under their names; the
     four-kernel entry is not called (no phi_D or B^T plane)."""
     fake = _FakeLib()
     monkeypatch.setattr(fused_xc, "_lib", lambda: fake)
@@ -276,6 +287,9 @@ def test_launch_reaches_tensor_core_entry(monkeypatch, name, kw, launch,
     [(entry, args)] = fake.calls
     assert entry == "fused_xc_tc"
     assert args[:2] == (fn.kind, mode)
+    # dm64, dm_p and v_part: null exactly where the mode does not read them
+    assert (args[6] is None, args[7] is None) == ((launch == "nophi",) * 2)
+    assert (args[16] is None) == (launch == "nov")
     assert fused_xc.LAUNCHES[launch] == 1
 
 
@@ -294,8 +308,9 @@ def test_sweep_tool_prints_every_variant_on_cpu():
     by = {r["variant"]: r["e_xc"] for r in rows}
     assert by["nov"] == by["K1"] == by["K1base"] and by["phi3"] == by["K3"]
     assert by["K3"] != by["K1"]
-    # K3 and phi3 are read against K1 (one pipeline), the rest against K1base
+    # K3, phi3, nophi and nov are read against K1 (one pipeline), the rest
+    # against K1base
     assert {r["variant"]: r["base"] for r in rows} == {
         "K1": None, "K1base": None, "K3": "K1", "phi3": "K1",
-        "nophi": "K1base", "noprod": "K1base", "nofunc": "K1base",
-        "nov": "K1base", "split2": "K1base"}
+        "nophi": "K1", "noprod": "K1base", "nofunc": "K1base",
+        "nov": "K1", "split2": "K1base"}

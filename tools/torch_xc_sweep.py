@@ -18,13 +18,14 @@ tensor cores), K1base (base=True: K1 on the four-kernel pipeline of FP32
 products with a phi_D/B^T plane), K3 (phi_split=True), the ablations nophi,
 phi3, noprod, nofunc and nov and split2 (reduce="split2", the TPU kernel's
 2-pass row sums).  Each row names its base, by the C entry it runs
-(fused_xc.route): K3 and phi3 run K1's kernels with phi_D as the bf16
-split, so they are read against K1 (phi3 - K1 is the cost of the bf16
-product against 3 x TF32 on one pipeline); the other ablations and split2
-each change one phase of the four-kernel pipeline (the ablations' results
-are wrong by design), so they are read against K1base: K1base minus an
-ablation is the time of the phase it removes.  K1 and K1base have no
-base.  The JAX tool's DFT_PALLAS_TILE and
+(fused_xc.route).  K3, phi3, nophi and nov run K1's kernels, so they are
+read against K1: phi3 - K1 is the cost of the bf16 product against 3 x
+TF32 on one pipeline, K1 - nov is K1's V, and K1 - nophi is its phi_D
+product with D's staging (the ablations' results are wrong by design).
+noprod, nofunc and split2 each change one phase of the four-kernel
+pipeline, so they are read against K1base: K1base minus an ablation is the
+time of the phase it removes there.  K1 and K1base have no base.  The JAX
+tool's DFT_PALLAS_TILE and
 DFT_PALLAS_NPAD_GRAN are TPU layout controls with no counterpart in the
 tiled CUDA kernels; the line gives the port's V chunk instead.
 
