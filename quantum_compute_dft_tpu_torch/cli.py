@@ -32,6 +32,8 @@ import time
 
 import torch
 
+from quantum_compute_dft_tpu_torch.utils.profiling import span, spanned
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -157,9 +159,11 @@ def _time_xc(xc_fn, device: torch.device, reps: int = 10) -> float:
     return (time.perf_counter() - t0) / reps * 1000.0
 
 
+@spanned("job")
 def run(argv=None):
     """Parse, prepare, run the SCF and print the report.  -> (setup,
-    SCFResult, scf_seconds)."""
+    SCFResult, scf_seconds).  The whole job is the span "job"
+    (utils/profiling.py), the XC statistic "job.xc_statistic"."""
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -243,7 +247,8 @@ def run(argv=None):
         xc_label = "f64"
         xc_fn = lambda: xc_step(  # noqa: E731
             setup.functional, res.dm, s.ao, s.weights, s.ao_grad)
-    xc_ms = _time_xc(xc_fn, device)
+    with span("job.xc_statistic"):
+        xc_ms = _time_xc(xc_fn, device)
 
     eb = res.energy
     print("-" * 80)

@@ -30,6 +30,7 @@ from quantum_compute_dft_tpu_torch.integrals.two_electron import (
     diag_runner,
     pair_data,
 )
+from quantum_compute_dft_tpu_torch.utils.profiling import span
 
 # pivots per panel and pairs per quartet block: the JAX package's device
 # block
@@ -43,9 +44,17 @@ def cholesky_eri_vectors(
     max_rank: int | None = None,
     device="cpu",
     verbose: bool = False,
+    timings: dict | None = None,
 ) -> torch.Tensor:
     """-> L (nao, nao, rank) f64 spherical-AO Cholesky vectors on `device`
-    with max residual diagonal < tol (guaranteed elementwise ERI error)."""
+    with max residual diagonal < tol (guaranteed elementwise ERI error).
+
+    timings, if given, gets the split between card and host, host seconds
+    at the transfers the factorization waits at anyway: cholesky_card_s
+    (the diagonal and the panels, each to the end of its transfer to the
+    host), cholesky_host_s (the downdates, the in-panel factorizations, the
+    unpack and its upload) and cholesky_panels."""
+    card, host = "cholesky_card_s", "cholesky_host_s"
     n = basis.ncart
     lmax = int(basis.cart_powers.max())
     iu, ju, p_all, P_all, et_all, cw = pair_data(basis, device)
@@ -55,11 +64,12 @@ def cholesky_eri_vectors(
 
     # residual diagonal d_ab = (ab|ab) over ALL pairs; every block is
     # queued on the device before the one host transfer
-    d_full = torch.cat([
-        run_diag(p_all[s:s + block], P_all[s:s + block],
-                 et_all[s:s + block], cw[s:s + block])
-        for s in range(0, npair, block)
-    ]).cpu().numpy()
+    with span("cholesky.diag", timings, card):
+        d_full = torch.cat([
+            run_diag(p_all[s:s + block], P_all[s:s + block],
+                     et_all[s:s + block], cw[s:s + block])
+            for s in range(0, npair, block)
+        ]).cpu().numpy()
     d_full = np.maximum(d_full, 0.0)
 
     # Schwarz screening: |(ab|cd)| <= sqrt(d_ab d_cd) <= sqrt(d_ab d_max),
@@ -104,37 +114,44 @@ def cholesky_eri_vectors(
         cand = np.argsort(-d)[:block]
         piv = cand[d[cand] > tol]
         k = len(piv)
-        panel = run_panel(piv)
+        with span("cholesky.panel", timings, card):
+            panel = run_panel(piv)
         if l_cols:
-            lmat = np.concatenate(l_cols, axis=1)
-            panel -= lmat @ lmat[piv].T
+            with span("cholesky.downdate", timings, host):
+                lmat = np.concatenate(l_cols, axis=1)
+                panel -= lmat @ lmat[piv].T
         # in-panel pivoted factorization (host, exact f64)
-        for c in range(k):
-            if len(l_cols) >= max_rank:
-                break
-            djj = panel[piv[c], c]
-            if djj < tol:
-                continue  # downdated below threshold by earlier columns
-            lcol = panel[:, c] / np.sqrt(djj)
-            l_cols.append(lcol[:, None])
-            if c + 1 < k:
-                panel[:, c + 1:] -= lcol[:, None] * lcol[piv[c + 1:]][None, :]
-            d -= lcol * lcol
-        d = np.maximum(d, 0.0)
+        with span("cholesky.factor", timings, host):
+            for c in range(k):
+                if len(l_cols) >= max_rank:
+                    break
+                djj = panel[piv[c], c]
+                if djj < tol:
+                    continue  # downdated below threshold by earlier columns
+                lcol = panel[:, c] / np.sqrt(djj)
+                l_cols.append(lcol[:, None])
+                if c + 1 < k:
+                    panel[:, c + 1:] -= (lcol[:, None]
+                                         * lcol[piv[c + 1:]][None, :])
+                d -= lcol * lcol
+            d = np.maximum(d, 0.0)
         it += 1
         if verbose:
             print(f"  cholesky panel {it}: rank={len(l_cols)}, "
                   f"max residual diag={d.max():.3e}")
 
-    rank = len(l_cols)
-    l_pair = (np.concatenate(l_cols, axis=1) if rank
-              else np.zeros((npair, 0)))
+    if timings is not None:
+        timings["cholesky_panels"] = it
+    with span("cholesky.unpack", timings, host):
+        rank = len(l_cols)
+        l_pair = (np.concatenate(l_cols, axis=1) if rank
+                  else np.zeros((npair, 0)))
 
-    # unpack (pair, rank) -> symmetric (ncart, ncart, rank) -> spherical
-    full = np.zeros((n, n, rank))
-    full[iu, ju] = l_pair
-    full[ju, iu] = l_pair
-    c2s = basis.c2s
-    if not (c2s.shape[0] == n and np.allclose(c2s, np.eye(n))):
-        full = np.einsum("ip,jq,pqr->ijr", c2s, c2s, full, optimize=True)
-    return torch.as_tensor(full, dtype=torch.float64, device=device)
+        # unpack (pair, rank) -> symmetric (ncart, ncart, rank) -> spherical
+        full = np.zeros((n, n, rank))
+        full[iu, ju] = l_pair
+        full[ju, iu] = l_pair
+        c2s = basis.c2s
+        if not (c2s.shape[0] == n and np.allclose(c2s, np.eye(n))):
+            full = np.einsum("ip,jq,pqr->ijr", c2s, c2s, full, optimize=True)
+        return torch.as_tensor(full, dtype=torch.float64, device=device)

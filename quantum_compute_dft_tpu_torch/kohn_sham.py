@@ -40,6 +40,7 @@ from quantum_compute_dft_tpu_torch.scf.driver import (
     make_system,
     scf_host,
 )
+from quantum_compute_dft_tpu_torch.utils.profiling import span, spanned
 from quantum_compute_dft_tpu_torch.xc.functionals import FUNCTIONALS, Functional
 
 # in-core ERIs below/at this nao, density fitting above (see prepare)
@@ -71,7 +72,10 @@ class KSSetup:
     ri_split: dict | None = None
     # seconds of build_time per phase (device work finished at each mark):
     # one_electron_s, two_electron_s (ERIs or the DF factor), grid_s, ao_s,
-    # system_s (uploads, S^-1/2 and the factor's copies)
+    # system_s (uploads, S^-1/2 and the factor's copies); inside them, the
+    # setup cache's cache_load_s and cache_store_s (the store's copy to the
+    # host included) and, when the Cholesky ran, its cholesky_card_s,
+    # cholesky_host_s and cholesky_panels (integrals/cholesky.py)
     setup_split: dict | None = None
     # the artifacts loaded from the setup cache instead of built: any of
     # "int1e", "cdvec" (the Cholesky factor), "eri", "grid"
@@ -95,6 +99,7 @@ def _functional(functional: str | Functional) -> Functional:
     return FUNCTIONALS[functional.upper()]
 
 
+@spanned("prepare")
 def prepare(
     mol: Molecule,
     functional: str | Functional = "LDA",
@@ -126,97 +131,111 @@ def prepare(
     CACHE_ERI_NAO and the grid (when `grid` is not given); an override
     factor and the RI tiers are not cached, as in the JAX package.
     KSSetup.cache_hits names what was loaded, and df_time stays 0 when the
-    factor was."""
+    factor was.
+
+    Its stages are spans (utils/profiling.py): prepare.one_electron,
+    prepare.two_electron, prepare.grid, prepare.ao and prepare.system,
+    each ending at the device-synced mark of its setup_split entry."""
     device = _device(device)
     t0 = time.time()
     fn = _functional(functional)
     basis = build_basis(mol)
     ck = setup_cache.molecule_basis_key(mol, basis)
     hits = []
+    extra = dict(cache_load_s=0.0, cache_store_s=0.0)
 
     def cached(kind, key, names, build):
         """Tensors on `device` from the cache, else from build() (stored)."""
-        got = setup_cache.load(kind, key, names)
+        got = setup_cache.load(kind, key, names, into=extra)
         if got is not None:
             hits.append(kind)
             return [torch.as_tensor(a, device=device) for a in got]
         out = build()
-        setup_cache.store(kind, key, **{
-            n: a.cpu().numpy() if isinstance(a, torch.Tensor) else a
-            for n, a in zip(names, out)})
+        setup_cache.store(kind, key, into=extra, **dict(zip(names, out)))
         return out
 
-    s, t, v = cached("int1e", ck, ("s", "t", "v"), lambda: one_electron(
-        basis, mol.coords, mol.charges, device=device))
-    marks = [t0, synced_time(device)]
+    with span("prepare.one_electron"):
+        s, t, v = cached("int1e", ck, ("s", "t", "v"), lambda: one_electron(
+            basis, mol.coords, mol.charges, device=device))
+        marks = [t0, synced_time(device)]
     if density_fit is None:
         density_fit = basis.nao > AUTO_DF_NAO
     eri = l_vec = None
     df_time = ri_time = 0.0
     ri_split = None
-    if _df_override is not None:
-        df_aux = "override"
-        j3c, v2c = (None if a is None else torch.as_tensor(
-            a, dtype=torch.float64, device=device) for a in _df_override)
-        l_vec = j3c if v2c is None else ri_factor(j3c, v2c)[0]
-        j3c = v2c = None
-    elif not density_fit:
-        df_aux = None
-        if basis.nao <= CACHE_ERI_NAO:
-            (eri,) = cached("eri", ck, ("eri",),
-                            lambda: (eri_full(basis, device=device),))
-        else:
-            eri = eri_full(basis, device=device)
-    elif df_aux == "parity":
-        t_df = time.time()
+    with span("prepare.two_electron"):
+        if _df_override is not None:
+            df_aux = "override"
+            j3c, v2c = (None if a is None else torch.as_tensor(
+                a, dtype=torch.float64, device=device) for a in _df_override)
+            l_vec = j3c if v2c is None else ri_factor(j3c, v2c)[0]
+            j3c = v2c = None
+        elif not density_fit:
+            df_aux = None
+            if basis.nao <= CACHE_ERI_NAO:
+                (eri,) = cached("eri", ck, ("eri",),
+                                lambda: (eri_full(basis, device=device),))
+            else:
+                eri = eri_full(basis, device=device)
+        elif df_aux == "parity":
+            t_df = time.time()
 
-        def factor():
-            nonlocal df_time
-            out = cholesky_eri_vectors(basis, device=device)
-            df_time = time.time() - t_df
-            return (out,)
+            def factor():
+                nonlocal df_time
+                out = cholesky_eri_vectors(basis, device=device,
+                                           timings=extra)
+                df_time = time.time() - t_df
+                return (out,)
 
-        (l_vec,) = cached("cdvec", ck, ("l_vec",), factor)
-    elif df_aux in AUX_LEVELS:
-        t_df = synced_time(device)
-        ri_split = {}
-        j3c, v2c = df_tensors(basis, mol, aux_level=df_aux, device=device,
-                              timings=ri_split)
-        t_b = synced_time(device)
-        l_vec, ri_split["naux"] = ri_factor(j3c, v2c)
-        del j3c, v2c
-        ri_split["factor_s"] = synced_time(device) - t_b
-        ri_time = synced_time(device) - t_df
-    else:
-        raise ValueError(f"df_aux must be 'parity', 'tight' or 'fast', not "
-                         f"{df_aux!r}")
-    marks.append(synced_time(device))
-    if grid is None:
-        gkey = f"{ck}_L{grid_level}_p{int(prune)}"
-        got = setup_cache.load("grid", gkey, ("coords", "weights", "atom_idx"))
-        if got is not None:
-            hits.append("grid")
-            grid = Grid(*got)
+            (l_vec,) = cached("cdvec", ck, ("l_vec",), factor)
+        elif df_aux in AUX_LEVELS:
+            t_df = synced_time(device)
+            ri_split = {}
+            j3c, v2c = df_tensors(basis, mol, aux_level=df_aux, device=device,
+                                  timings=ri_split)
+            t_b = synced_time(device)
+            l_vec, ri_split["naux"] = ri_factor(j3c, v2c)
+            del j3c, v2c
+            ri_split["factor_s"] = synced_time(device) - t_b
+            ri_time = synced_time(device) - t_df
         else:
-            grid = build_grid(mol, level=grid_level, prune=prune,
-                              device=device)
-            setup_cache.store("grid", gkey, coords=grid.coords,
-                              weights=grid.weights, atom_idx=grid.atom_idx)
-    marks.append(synced_time(device))
-    if fn.needs_grad:
-        ao, ao_grad = eval_ao(basis, grid.coords, deriv=1, device=device)
-    else:
-        ao, ao_grad = eval_ao(basis, grid.coords, deriv=0, device=device), None
-    marks.append(synced_time(device))
-    sys = make_system(
-        t + v, s, eri, ao, grid.weights, ao_grad, mol.energy_nuc(), mol.nocc,
-        sad_occ=sad_occupations(basis, mol.charges, mol.nelec),
-        nopen=mol.nopen, device=device, df_l=l_vec,
-        build_k=fn.hyb_coeff != 0.0,
-    )
-    marks.append(synced_time(device))
+            raise ValueError(f"df_aux must be 'parity', 'tight' or 'fast', "
+                             f"not {df_aux!r}")
+        marks.append(synced_time(device))
+    with span("prepare.grid"):
+        if grid is None:
+            gkey = f"{ck}_L{grid_level}_p{int(prune)}"
+            got = setup_cache.load("grid", gkey,
+                                   ("coords", "weights", "atom_idx"),
+                                   into=extra)
+            if got is not None:
+                hits.append("grid")
+                grid = Grid(*got)
+            else:
+                grid = build_grid(mol, level=grid_level, prune=prune,
+                                  device=device)
+                setup_cache.store("grid", gkey, into=extra,
+                                  coords=grid.coords, weights=grid.weights,
+                                  atom_idx=grid.atom_idx)
+        marks.append(synced_time(device))
+    with span("prepare.ao"):
+        if fn.needs_grad:
+            ao, ao_grad = eval_ao(basis, grid.coords, deriv=1, device=device)
+        else:
+            ao = eval_ao(basis, grid.coords, deriv=0, device=device)
+            ao_grad = None
+        marks.append(synced_time(device))
+    with span("prepare.system"):
+        sys = make_system(
+            t + v, s, eri, ao, grid.weights, ao_grad, mol.energy_nuc(),
+            mol.nocc, sad_occ=sad_occupations(basis, mol.charges, mol.nelec),
+            nopen=mol.nopen, device=device, df_l=l_vec,
+            build_k=fn.hyb_coeff != 0.0,
+        )
+        marks.append(synced_time(device))
     split = dict(zip(("one_electron_s", "two_electron_s", "grid_s", "ao_s",
                       "system_s"), np.diff(marks).tolist()))
+    split.update(extra)
     return KSSetup(sys=sys, functional=fn, nao=basis.nao, ngrid=grid.ngrid,
                    nocc=mol.nocc, build_time=marks[-1] - t0, grid=grid,
                    df_time=df_time, df_aux=df_aux, ri_time=ri_time,

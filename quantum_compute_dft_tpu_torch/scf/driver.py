@@ -71,6 +71,7 @@ from quantum_compute_dft_tpu_torch.scf.diis import (
     diis_push,
     diis_update,
 )
+from quantum_compute_dft_tpu_torch.utils.profiling import span, spanned
 from quantum_compute_dft_tpu_torch.xc.functionals import Functional
 
 CONV_TOL_E = 1e-8
@@ -387,22 +388,27 @@ def _cycle_tail(sys: SCFSystem, functional: Functional, dm, diis, e_xc,
     """J, K, Fock, the mixer (CDIIS; ADIIS, `diis` then an ADIISState;
     'mix' leaves `diis` untouched), level shift, eigh density (Fermi-
     smeared when smear_kt > 0), energies."""
-    j = _build_j(sys, dm)
+    with span("scf.j"):
+        j = _build_j(sys, dm)
     c_hf = functional.hyb_coeff
     k = None
     f = sys.hcore + j + vxc
     if c_hf != 0.0:
-        k = _build_k(sys, dm, fast=fast_k)
+        with span("scf.k"):
+            k = _build_k(sys, dm, fast=fast_k)
         f = f - 0.5 * c_hf * k
-    if mixer == "adiis":
-        diis, f = adiis_update(diis, f, dm)
-    elif mixer != "mix":
-        diis, f = diis_update(diis, f, dm, sys.s, sys.x)
-    f = _level_shift(f, dm, sys.s, shift)
-    if smear_kt > 0.0:
-        dm_new = _fermi_density(sys.x, f, 2 * sys.nocc + sys.nopen, smear_kt)
-    else:
-        dm_new = _density(sys.x, f, sys.nocc, sys.nopen)
+    with span("scf.mix"):
+        if mixer == "adiis":
+            diis, f = adiis_update(diis, f, dm)
+        elif mixer != "mix":
+            diis, f = diis_update(diis, f, dm, sys.s, sys.x)
+    with span("scf.eigh"):
+        f = _level_shift(f, dm, sys.s, shift)
+        if smear_kt > 0.0:
+            dm_new = _fermi_density(sys.x, f, 2 * sys.nocc + sys.nopen,
+                                    smear_kt)
+        else:
+            dm_new = _density(sys.x, f, sys.nocc, sys.nopen)
     return dm_new, diis, lambda d: _energies(d, sys, j, k, e_xc, c_hf)
 
 
@@ -412,7 +418,9 @@ def scf_iteration(sys: SCFSystem, functional: Functional, dm, diis,
     """One f64 SCF cycle -> (dm_new, diis, energies [5], dnorm).
     mixer='mix' is damped linear mixing, D + alpha (D_new - D); dnorm is
     then the blended step, as in the JAX package's scf_host."""
-    e_xc, vxc = xc_step(functional, dm, sys.ao, sys.weights, sys.ao_grad)
+    with span("scf.xc"):
+        e_xc, vxc = xc_step(functional, dm, sys.ao, sys.weights,
+                            sys.ao_grad)
     dm_new, diis, energies = _cycle_tail(sys, functional, dm, diis, e_xc,
                                          vxc, shift, smear_kt, mixer)
     if mixer == "mix":
@@ -430,17 +438,20 @@ def scf_iteration_fast(sys: SCFSystem, functional: Functional, dm, diis,
     sanity guard (scf_host_staged's cycle).  -> (dm_new, diis, energies
     [5], dnorm).  Under mixer='mix' dnorm stays the raw map residual, as in
     the JAX package's staged tail."""
-    e_xc, vxc = _fused_xc(sys, functional, dm)
+    with span("scf.xc"):
+        e_xc, vxc = _fused_xc(sys, functional, dm)
     dm_new, diis, energies = _cycle_tail(sys, functional, dm, diis, e_xc,
                                          vxc, shift, smear_kt, mixer,
                                          fast_k=fast_k)
-    dm_new, insane = _density_sanity(sys, dm, dm_new)
+    with span("scf.sanity"):
+        dm_new, insane = _density_sanity(sys, dm, dm_new)
     dnorm = torch.linalg.norm(dm_new - dm) + insane
     if mixer == "mix":
         dm_new = dm + mix_alpha * (dm_new - dm)
     return dm_new, diis, energies(dm_new), dnorm
 
 
+@spanned("scf.energy_of_dm")
 def energy_of_dm(sys: SCFSystem, functional: Functional,
                  dm) -> EnergyBreakdown:
     """Self-consistent f64 total energy at a given density (every term
@@ -477,6 +488,7 @@ class SCFResult:
     smear_kt: float = 0.0
 
 
+@spanned("scf")
 def scf_host(
     sys: SCFSystem,
     functional: Functional,
@@ -546,60 +558,67 @@ def scf_host(
                                     fast_k=xc_impl == "fast")
     dn_streak = 0
     n_fast = 0
+    done = None    # the converged cycle and its density
     for cycle in range(max_cycle):
-        step = kernel_step if kernel_phase else scf_iteration
-        dm_new, diis, en, dn_t = step(
-            sys, functional, dm, diis,
-            shift=0.0 if (use_adiis or use_mix) else shiftc.shift,
-            smear_kt=smear_kt,
-            mixer="adiis" if use_adiis else "mix" if use_mix else "cdiis",
-            mix_alpha=mix_alpha)
-        n_fast += kernel_phase
-        stat = torch.cat([en, dn_t[None]]).tolist()  # one fetch per cycle
-        eb, dnorm = EnergyBreakdown(*stat[:5]), stat[5]
-        de = eb.e_tot - e_old
-        if callback:
-            callback(cycle, eb, de, dnorm)
-        converged = abs(de) < conv_tol_e and dnorm < conv_tol_d
-        if xc_impl == "fast" and kernel_phase and not converged:
-            dn_streak = dn_streak + 1 if dnorm < conv_tol_d else 0
-            converged = dn_streak >= FAST_DN_STREAK
-        if converged and (not kernel_phase or xc_impl == "pallas"):
-            if xc_impl == "fast":
-                eb = energy_of_dm(sys, functional, dm_new)
-            return SCFResult(True, cycle + 1, dm_new, eb, eb.e_tot,
-                             level_shift=shiftc.shift,
-                             shift_engaged_at=shiftc.engaged_at,
-                             fast_cycles=n_fast,
-                             verify_cycles=cycle + 1 - n_fast,
-                             smear_kt=smear_kt)
-        if use_adiis and dnorm < ADIIS_TO_CDIIS:
-            use_adiis = False
-            diis = diis_init(nao, device=sys.device)  # CDIIS, fresh history
-        # the two JAX loops differ here, and each is copied: the f64 loop's
-        # dnorm is the blended step (alpha x the raw map residual), which
-        # scf_host rescales; the kernel phase's dnorm is the raw residual,
-        # which scf_host_staged tests as it is
-        mix_dn = dnorm if kernel_phase else dnorm / mix_alpha
-        if use_mix and "+" in mixer and mix_dn < MIX_TO_CDIIS:
-            use_mix = False   # CDIIS takes over; its history is empty
-        if not use_adiis and not use_mix:
-            fresh = shiftc.update(cycle, dnorm)
-            if fresh is not None:
-                diis = fresh
-        if converged:
-            # candidate fixed point: verify it with f64 cycles and a fresh
-            # CDIIS history (the f32-floor history is noise)
-            kernel_phase = use_adiis = use_mix = False
-            diis = diis_init(nao, device=sys.device)
-            dm = dm_new
-        else:
-            dm = _damp(dm_new, dm, dnorm, dnorm_prev)
-        dnorm_prev = dnorm
-        e_old = eb.e_tot
-        if (checkpoint_cb is not None and checkpoint_every > 0
-                and (cycle + 1) % checkpoint_every == 0):
-            checkpoint_cb(cycle + 1, dm.cpu().numpy(), e_old)
+        with span("scf.cycle"):
+            step = kernel_step if kernel_phase else scf_iteration
+            dm_new, diis, en, dn_t = step(
+                sys, functional, dm, diis,
+                shift=0.0 if (use_adiis or use_mix) else shiftc.shift,
+                smear_kt=smear_kt,
+                mixer="adiis" if use_adiis else "mix" if use_mix else "cdiis",
+                mix_alpha=mix_alpha)
+            n_fast += kernel_phase
+            with span("scf.fetch"):
+                stat = torch.cat([en, dn_t[None]]).tolist()  # one per cycle
+            eb, dnorm = EnergyBreakdown(*stat[:5]), stat[5]
+            de = eb.e_tot - e_old
+            if callback:
+                callback(cycle, eb, de, dnorm)
+            converged = abs(de) < conv_tol_e and dnorm < conv_tol_d
+            if xc_impl == "fast" and kernel_phase and not converged:
+                dn_streak = dn_streak + 1 if dnorm < conv_tol_d else 0
+                converged = dn_streak >= FAST_DN_STREAK
+            if converged and (not kernel_phase or xc_impl == "pallas"):
+                done = cycle, dm_new
+                break
+            if use_adiis and dnorm < ADIIS_TO_CDIIS:
+                use_adiis = False
+                diis = diis_init(nao, device=sys.device)  # fresh CDIIS
+            # the two JAX loops differ here, and each is copied: the f64
+            # loop's dnorm is the blended step (alpha x the raw map
+            # residual), which scf_host rescales; the kernel phase's dnorm
+            # is the raw residual, which scf_host_staged tests as it is
+            mix_dn = dnorm if kernel_phase else dnorm / mix_alpha
+            if use_mix and "+" in mixer and mix_dn < MIX_TO_CDIIS:
+                use_mix = False   # CDIIS takes over; its history is empty
+            if not use_adiis and not use_mix:
+                fresh = shiftc.update(cycle, dnorm)
+                if fresh is not None:
+                    diis = fresh
+            if converged:
+                # candidate fixed point: verify it with f64 cycles and a
+                # fresh CDIIS history (the f32-floor history is noise)
+                kernel_phase = use_adiis = use_mix = False
+                diis = diis_init(nao, device=sys.device)
+                dm = dm_new
+            else:
+                dm = _damp(dm_new, dm, dnorm, dnorm_prev)
+            dnorm_prev = dnorm
+            e_old = eb.e_tot
+            if (checkpoint_cb is not None and checkpoint_every > 0
+                    and (cycle + 1) % checkpoint_every == 0):
+                checkpoint_cb(cycle + 1, dm.cpu().numpy(), e_old)
+    if done is not None:
+        cycle, dm_new = done
+        if xc_impl == "fast":
+            eb = energy_of_dm(sys, functional, dm_new)
+        return SCFResult(True, cycle + 1, dm_new, eb, eb.e_tot,
+                         level_shift=shiftc.shift,
+                         shift_engaged_at=shiftc.engaged_at,
+                         fast_cycles=n_fast,
+                         verify_cycles=cycle + 1 - n_fast,
+                         smear_kt=smear_kt)
     eb = (energy_of_dm(sys, functional, dm) if max_cycle > 0
           else EnergyBreakdown(*(float("nan"),) * 5))
     return SCFResult(False, max_cycle, dm, eb, eb.e_tot,

@@ -10,7 +10,9 @@ loads them instead of rebuilding them.
 Keyed, as in the JAX package, by a sha256 over the exact float64 geometry
 bytes, the charges and the five basis tables (so edited basis data
 invalidates).  Arrays are stored as host numpy (.npz) and loaded onto the
-caller's device.  Disable with DFT_SETUP_CACHE=0; the directory is
+caller's device.  Each load and store is a span (utils/profiling.py),
+``cache.load`` / ``cache.store``, whose seconds a caller may total in a
+dict of its own (``into``).  Disable with DFT_SETUP_CACHE=0; the directory is
 DFT_SETUP_CACHE_DIR, by default <repo>/.cache/setup_torch -- apart from the
 JAX package's .cache/setup, so a port run never loads an artifact the JAX
 package wrote.
@@ -24,6 +26,8 @@ import tempfile
 import zipfile
 
 import numpy as np
+
+from quantum_compute_dft_tpu_torch.utils.profiling import span
 
 
 def _cache_dir() -> str | None:
@@ -51,35 +55,41 @@ def molecule_basis_key(mol, basis) -> str:
     return h.hexdigest()[:24]
 
 
-def load(kind: str, key: str, names: tuple[str, ...]):
+def load(kind: str, key: str, names: tuple[str, ...],
+         into: dict | None = None):
     """-> tuple of numpy arrays, or None on a miss (no file, or one that
-    does not read)."""
-    d = _cache_dir()
-    if d is None:
-        return None
-    path = os.path.join(d, f"{kind}_{key}.npz")
-    if not os.path.exists(path):
-        return None
-    try:
-        with np.load(path) as z:
-            return tuple(z[n] for n in names)
-    except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
-        return None
+    does not read).  With `into`, its seconds add to into["cache_load_s"]."""
+    with span("cache.load", into, "cache_load_s"):
+        d = _cache_dir()
+        if d is None:
+            return None
+        path = os.path.join(d, f"{kind}_{key}.npz")
+        if not os.path.exists(path):
+            return None
+        try:
+            with np.load(path) as z:
+                return tuple(z[n] for n in names)
+        except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
+            return None
 
 
-def store(kind: str, key: str, **arrays) -> None:
-    """Write the arrays (numpy) under (kind, key).  The file is written
-    under a name of its own and renamed into place, so concurrent writers
-    of one key never leave a partial file."""
-    d = _cache_dir()
-    if d is None:
-        return
-    path = os.path.join(d, f"{kind}_{key}.npz")
-    fd, tmp = tempfile.mkstemp(suffix=".npz", dir=d)
-    os.close(fd)
-    try:
-        np.savez(tmp, **arrays)
-        os.replace(tmp, path)
-    except OSError:   # a full or read-only disk costs the cache, not the run
-        if os.path.exists(tmp):
-            os.remove(tmp)
+def store(kind: str, key: str, into: dict | None = None, **arrays) -> None:
+    """Write the arrays (numpy, or torch tensors, copied to the host here)
+    under (kind, key).  The file is written under a name of its own and
+    renamed into place, so concurrent writers of one key never leave a
+    partial file.  With `into`, its seconds add to into["cache_store_s"]."""
+    with span("cache.store", into, "cache_store_s"):
+        d = _cache_dir()
+        if d is None:
+            return
+        arrays = {n: a.cpu().numpy() if hasattr(a, "cpu") else a
+                  for n, a in arrays.items()}
+        path = os.path.join(d, f"{kind}_{key}.npz")
+        fd, tmp = tempfile.mkstemp(suffix=".npz", dir=d)
+        os.close(fd)
+        try:
+            np.savez(tmp, **arrays)
+            os.replace(tmp, path)
+        except OSError:   # a full or read-only disk costs the cache
+            if os.path.exists(tmp):
+                os.remove(tmp)
