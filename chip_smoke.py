@@ -8,6 +8,17 @@ raises and the script exits non-zero without the final line):
   1. environment: nvidia-smi name/power limit, device, torch/scipy/nvcc
   2. build the fused XC kernels (K1 GGA body, K2 LDA body, K3 and the K1
      variants) from csrc/
+     b. K4, the ERI quartet kernel (csrc/eri_quartet.cu), against its plain
+        version (the eager tiles of integrals/two_electron.py) on the card:
+        DHA's diagonal (all 11,628 pairs), its first pivot panel (the 128
+        largest diagonals of the pairs that survive the Cholesky's
+        screening at 1e-7) and a ragged pivot set (77 pivots), Benzene's
+        whole in-core W and the Se atom's (d shells, L = 4); each within
+        K4_TOL of the largest |W|, one launch a call by the counter, with
+        torch.cuda.synchronize() after each; K4 and plain ms (median of 25
+        calls, CUDA events) beside the bound: K4's f64 operations
+        (two_electron.k4_flops, times 81 primitive quartets a quartet) at
+        67 TFLOP/s, with the 34 TFLOP/s vector rate beside it
   3. each kernel against its plain PyTorch version and the f64 engine on
      H2O (grid 1) and benzene (grid 3) for LDA/GGA/B3LYP, and above npad
      64 at the density-fitting shapes: Decane's first 65 AOs (npad 72,
@@ -160,7 +171,8 @@ raises and the script exits non-zero without the final line):
 The last three lines are the kernels' JSON record (every kernel with its
 launches on its path, its largest deviation from its plain version, its
 time, the plain version's, its bound and what sets it, and library_ms:
-null, since no one PyTorch call computes a fused XC body), the card's name
+null, since no one PyTorch call computes a fused XC body or a quartet
+block; K4's launches are 4a's and 4b's), the card's name
 and power limit, and {"ok": true, "device": {...}}.  Imports nothing of
 JAX; needs a CUDA GPU.
 """
@@ -192,6 +204,12 @@ TOL_K3_F64 = 3e-4, 3e-3
 # V by 3.5e-4 of max |V| there, K1's by 1.5e-7
 TOL_ABLATE_V = 5e-5
 TOL_NOPROD_V = 2e-3
+# K4 against its plain version (both f64; other summation order, products
+# with reciprocals and one rsqrt in place of divisions), of max |W|
+K4_TOL = 1e-12
+# the card's f64 peaks (NVIDIA's H100 SXM data sheet): tensor-core FMA and
+# the vector units
+F64_PEAK, F64_VECTOR = 67e12, 34e12
 BENZENE_E = -229.10950264    # BENCH_r05.json, Benzene PBE grid 3
 BENZENE_TOL = 1e-6
 # docs/RESULTS.md:61, 68 (B3LYP grid 3, density-fitted).  The reference
@@ -259,6 +277,12 @@ DF_SHAPES = (("Decane", 3, None), ("DHA", 3, None),
              ("C17H31O6N5S", 1, 65536), ("C33H56N7O17P3S", 1, 65536))
 DF_SUB_AOS = {"Decane": 65, "C33H56N7O17P3S": 197}
 KERNEL_SRC = "quantum_compute_dft_tpu_torch/csrc/fused_xc.cu"
+K4_SRC = "quantum_compute_dft_tpu_torch/csrc/eri_quartet.cu"
+# the eager tile K4 replaces, the port of the JAX package's quartet stage
+# (which XLA compiles: no Pallas kernel)
+K4_REPLACES = ("quantum_compute_dft_tpu_torch/integrals/two_electron.py::"
+               "_quartet_kernel (quantum_compute_dft_tpu/integrals/"
+               "two_electron.py::_block_runner)")
 _PX = "quantum_compute_dft_tpu/engine/pallas_xc.py:"
 REPLACES = {
     "K1": _PX + "201", "K2": _PX + "269", "K1base": _PX + "201",
@@ -314,6 +338,99 @@ def phase_build():
     path = fused_xc.build()
     fused_xc._lib()
     _phase("2 build", t0, f"built {os.path.relpath(path, HERE)}")
+
+
+def _k4_case(label, fn, plain, nquartet, l_pair, reps):
+    """One K4 case: one launch, synchronized, against its plain version;
+    -> its record (error, ms, plain ms, bound ms)."""
+    import torch
+    import torch_kernel_timing as kt
+
+    from quantum_compute_dft_tpu_torch.integrals import two_electron
+
+    before = two_electron.LAUNCHES["K4"]
+    out = fn()
+    torch.cuda.synchronize()  # a fault shows at the kernel that made it
+    launches = two_electron.LAUNCHES["K4"] - before
+    ref = plain()
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    err = float((out - ref).abs().max())
+    if launches != 1 or out.shape != ref.shape or not err <= K4_TOL * scale:
+        raise AssertionError(f"K4 {label}: {launches} launches, max |diff| "
+                             f"{err:.3e} of max |W| {scale:.3e}")
+    ms = kt.cuda_ms(fn, reps=reps)
+    plain_ms = kt.cuda_ms(plain, reps=reps, warm=1)
+    flops = nquartet * 81 * two_electron.k4_flops(l_pair)
+    bound = flops / F64_PEAK * 1e3
+    r = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+         "vector_bound_ms": flops / F64_VECTOR * 1e3, "max_abs_err": err,
+         "max_abs_w": scale, "quartets": nquartet, "flops": flops}
+    print(f"  K4 {label} (L={l_pair}, {nquartet} quartets, {flops:.3e} f64 "
+          f"ops): max |diff| {err:.2e} of max |W| {scale:.3e}; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of {reps}), bound "
+          f"{bound:.4f} ms at 67 TFLOP/s ({100 * bound / ms:.1f}%), "
+          f"{r['vector_bound_ms']:.4f} ms at 34", flush=True)
+    return r
+
+
+def phase_k4(dev, reps=25):
+    """2b: K4 against its plain version at DHA, Benzene and the Se atom;
+    -> {case: record}."""
+    t0 = time.time()
+    import warnings
+
+    import numpy as np
+
+    from quantum_compute_dft_tpu_torch.basis import build_basis
+    from quantum_compute_dft_tpu_torch.integrals import two_electron as te
+    from quantum_compute_dft_tpu_torch.mol import Molecule, from_xyz_file
+
+    def pairs_of(mol):
+        with warnings.catch_warnings():  # Se's tables are 'optimized'
+            warnings.simplefilter("ignore", RuntimeWarning)
+            basis = build_basis(mol)
+        lp = 2 * int(basis.cart_powers.max())
+        iu, _, *hermite = te.pair_data(basis, dev)
+        return te.quartet_pairs(*hermite, lp), np.arange(len(iu)), lp
+
+    def mol_file(name):
+        return from_xyz_file(os.path.join(HERE, "molecules", name + ".xyz"))
+
+    out = {}
+    pairs, rows, lp = pairs_of(mol_file("DHA"))
+    out["dha_diagonal"] = _k4_case(
+        "DHA diagonal", lambda: te.eri_diagonal(pairs, rows, 128),
+        lambda: te.eri_diagonal_reference(pairs, rows, 128), len(rows), lp,
+        reps)
+    # the Cholesky's screening (tol 1e-7) and its first pivot panel
+    d = te.eri_diagonal(pairs, rows, 128).cpu().numpy()
+    sel = np.nonzero(d > 1e-14 / d.max())[0]
+    piv = sel[np.argsort(-d[sel])[:128]]
+    ragged = np.random.default_rng(15).choice(sel, 77, replace=False)
+    for key, cols in (("dha_panel", piv), ("dha_ragged", ragged)):
+        out[key] = _k4_case(
+            f"DHA {key[4:]} ({len(sel)} x {len(cols)})",
+            lambda c=cols: te.eri_columns(pairs, sel, c, 128),
+            lambda c=cols: te.eri_columns_reference(pairs, sel, c, 128),
+            len(sel) * len(cols), lp, reps)
+    del pairs
+    for key, mol, block in (
+            ("benzene_w", mol_file("Benzene"), 64),
+            ("se_w", Molecule(symbols=("Se",), coords=np.zeros((1, 3))), 16)):
+        pairs, rows, lp = pairs_of(mol)
+        d = te.eri_diagonal(pairs, rows, block).cpu().numpy()
+        sel = np.nonzero(d * d.max() > 1e-24)[0]  # eri_packed's screening
+        n = len(sel)
+        out[key] = _k4_case(
+            f"{key.split('_')[0]} W ({n} pairs)",
+            lambda p=pairs, s=sel, b=block: te.eri_matrix(p, s, b),
+            lambda p=pairs, s=sel, b=block: te.eri_matrix_reference(p, s, b),
+            n * (n + 1) // 2, lp, reps)
+    _phase("2b K4", t0, f"K4 within {K4_TOL:g} of max |W| at L = 2 (DHA "
+           "diagonal, first panel and ragged pivots; Benzene W) and L = 4 "
+           "(Se W), one launch a call")
+    return out
 
 
 def _compare(label, kid, case, rec, variant=None, tol_plain=(TOL_PLAIN,
@@ -704,9 +821,11 @@ def _golden(molecule, functional):
 
 def _reset_launches():
     from quantum_compute_dft_tpu_torch.engine import fused_xc
+    from quantum_compute_dft_tpu_torch.integrals import two_electron
 
     for k in fused_xc.LAUNCHES:
         fused_xc.LAUNCHES[k] = 0
+    two_electron.LAUNCHES["K4"] = 0
 
 
 def _cli(fname, mol, dev, e_ref, *args):
@@ -739,6 +858,7 @@ def _run_path(name, runs, dev):
     tolerance); the reference "previous" is the energy of the run before,
     None checks convergence only."""
     from quantum_compute_dft_tpu_torch.engine import fused_xc
+    from quantum_compute_dft_tpu_torch.integrals import two_electron
 
     t0 = time.time()
     _reset_launches()
@@ -758,7 +878,7 @@ def _run_path(name, runs, dev):
             raise AssertionError(f"{fname} {mol}: E={res.e_tot} vs "
                                  f"{e_ref} (tol {tol})")
         e_prev = res.e_tot
-    launches = dict(fused_xc.LAUNCHES)
+    launches = dict(fused_xc.LAUNCHES, **two_electron.LAUNCHES)
     for kid in ("K1", "K2"):
         if launches[kid] < max(1, fast_cycles[kid]):
             raise AssertionError(f"{name}: {kid} {launches[kid]} launches "
@@ -1550,6 +1670,7 @@ def main() -> int:
     import torch
 
     dev = torch.device("cuda")
+    k4 = phase_k4(dev)
     rec, cases = phase_kernels(dev)
     phase_k3(cases, rec)
     phase_k1_ablations(cases, rec)
@@ -1586,6 +1707,16 @@ def main() -> int:
         if missing:
             raise AssertionError(f"{kid}: no {sorted(missing)} in this run")
         kernels.append(entry)
+    if min(incore["K4"], df["K4"]) < 1:
+        raise AssertionError("K4 was not launched on the main paths")
+    kernels.append({
+        "name": "K4 ERI quartet stage", "route": "cuda",
+        "source": K4_SRC, "replaces": K4_REPLACES, "launches": df["K4"],
+        "incore_launches": incore["K4"],
+        "max_abs_err": max(r["max_abs_err"] for r in k4.values()),
+        **{k: k4["dha_panel"][k] for k in ("ms", "plain_ms", "bound_ms")},
+        "bound_by": "f64 operations at 67 TFLOP/s",
+        "cases": k4, "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

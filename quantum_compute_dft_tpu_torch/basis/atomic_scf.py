@@ -102,12 +102,7 @@ def atom_integrals(symbol: str, zetas: dict[str, float] | None = None,
     s, t, v = one_electron(basis, mol.coords, mol.charges, device=dev)
     s = torch.as_tensor(s, device=dev)
     h = torch.as_tensor(t + v, device=dev)
-    # on the card the quartet stage is launch-bound: 64-pair blocks cut
-    # the ERI time ~10x against eri_full's default 16 at d shells (I:
-    # 0.92 s against 9.3 s, 3.2 GiB peak; tools/torch_atomic_timing.py);
-    # on the CPU it is compute-bound and the default is faster
-    block = 64 if dev.type == "cuda" else None
-    return basis, h, s, eri_full(basis, block=block, device=dev)
+    return basis, h, s, eri_full(basis, device=dev)
 
 
 def _geigh(f, s):

@@ -161,34 +161,45 @@ def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the fused XC kernels need the CUDA "
-                       "toolkit to build")
+    raise RuntimeError("nvcc not found: the port's CUDA kernels need the "
+                       "CUDA toolkit to build")
 
 
-def library_path() -> Path:
+def _library_path(stem: str, sources: tuple, flags: tuple = ()) -> Path:
     h = hashlib.sha256()
-    for name in _SOURCES:
+    for name in sources:
         h.update((_CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"fused_xc_{h.hexdigest()[:16]}.so"
+    h.update(" ".join(NVCC_FLAGS + flags).encode())
+    return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile csrc/fused_xc.cu unless the library for this source hash
-    exists; returns its path."""
-    out = library_path()
+def build_library(stem: str, sources: tuple, flags: tuple = ()) -> Path:
+    """Compile csrc/<sources[0]> (which includes the rest of `sources`)
+    with NVCC_FLAGS + flags into BUILD_DIR/<stem>_<hash>.so unless the
+    library for this source and flag hash exists; returns its path."""
+    out = _library_path(stem, sources, flags)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_CSRC / "fused_xc.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", tmp, str(_CSRC / sources[0])]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{res.stderr}")
     os.replace(tmp, out)
     return out
+
+
+def library_path() -> Path:
+    return _library_path("fused_xc", _SOURCES)
+
+
+def build() -> Path:
+    """Compile csrc/fused_xc.cu unless the library for this source hash
+    exists; returns its path."""
+    return build_library("fused_xc", _SOURCES)
 
 
 def _lib():

@@ -9,8 +9,9 @@ residual-diagonal threshold `tol` guarantees
 
 element-wise.  Blocked pivot panels: each outer iteration picks the
 `block` largest residual diagonals, evaluates their ERI columns on the
-device with the in-core path's quartet blocks (integrals/two_electron.py),
-and downdates on the host in exact f64 numpy.  Total integral work is
+device with the in-core path's quartet stage (integrals/two_electron.py:
+on the card one K4 launch for the diagonal and one a panel), and downdates
+on the host in exact f64 numpy.  Total integral work is
 O(npair * rank) quartets instead of O(npair^2).
 
 The factor unpacks to a (nao, nao, rank) tensor that the density-fitted
@@ -26,14 +27,16 @@ import torch
 
 from quantum_compute_dft_tpu_torch.basis.basis_set import BasisSet
 from quantum_compute_dft_tpu_torch.integrals.two_electron import (
-    _quartet_kernel,
-    diag_runner,
+    LAUNCHES,
+    eri_columns,
+    eri_diagonal,
     pair_data,
+    quartet_pairs,
 )
 from quantum_compute_dft_tpu_torch.utils.profiling import span
 
-# pivots per panel and pairs per quartet block: the JAX package's device
-# block
+# pivots per panel and pairs per eager quartet tile (the CPU path): the
+# JAX package's device block
 BLOCK = 128
 
 
@@ -53,23 +56,21 @@ def cholesky_eri_vectors(
     at the transfers the factorization waits at anyway: cholesky_card_s
     (the diagonal and the panels, each to the end of its transfer to the
     host), cholesky_host_s (the downdates, the in-panel factorizations, the
-    unpack and its upload) and cholesky_panels."""
+    unpack and its upload), cholesky_panels and eri_kernel_launches (the
+    K4 launches of the factorization: the diagonal and one a panel on the
+    card, 0 on the CPU)."""
     card, host = "cholesky_card_s", "cholesky_host_s"
     n = basis.ncart
     lmax = int(basis.cart_powers.max())
-    iu, ju, p_all, P_all, et_all, cw = pair_data(basis, device)
+    launches = LAUNCHES["K4"]
+    iu, ju, *hermite = pair_data(basis, device)
+    pairs = quartet_pairs(*hermite, 2 * lmax)
     npair = len(iu)
-    run_block = _quartet_kernel(2 * lmax, device)
-    run_diag = diag_runner(2 * lmax, device)
 
-    # residual diagonal d_ab = (ab|ab) over ALL pairs; every block is
-    # queued on the device before the one host transfer
+    # residual diagonal d_ab = (ab|ab) over ALL pairs, then one host
+    # transfer
     with span("cholesky.diag", timings, card):
-        d_full = torch.cat([
-            run_diag(p_all[s:s + block], P_all[s:s + block],
-                     et_all[s:s + block], cw[s:s + block])
-            for s in range(0, npair, block)
-        ]).cpu().numpy()
+        d_full = eri_diagonal(pairs, np.arange(npair), block).cpu().numpy()
     d_full = np.maximum(d_full, 0.0)
 
     # Schwarz screening: |(ab|cd)| <= sqrt(d_ab d_cd) <= sqrt(d_ab d_max),
@@ -82,9 +83,6 @@ def cholesky_eri_vectors(
     iu, ju = iu[sel], ju[sel]
     d = d_full[sel]
     npair = len(sel)
-    sel_t = torch.as_tensor(sel, device=device)
-    p_s, P_s, et_s, cw_s = (p_all[sel_t], P_all[sel_t], et_all[sel_t],
-                            cw[sel_t])
     if verbose:
         print(f"  cholesky: {npair}/{len(d_full)} pairs survive Schwarz "
               f"screening at tol={tol:g}")
@@ -93,16 +91,10 @@ def cholesky_eri_vectors(
         max_rank = min(npair, 16 * basis.nao + 64)
 
     def run_panel(piv):
-        """ERI columns W[:, piv] for one pivot block -> (npair, k) numpy.
-        All row blocks are queued on the device first; the panel crosses
-        to the host in one transfer (one synchronization per panel)."""
-        pt = torch.as_tensor(piv, device=device)
-        pb, Pb, eb, cb = p_s[pt], P_s[pt], et_s[pt], cw_s[pt]
-        return torch.cat([
-            run_block(p_s[s:s + block], P_s[s:s + block],
-                      et_s[s:s + block], cw_s[s:s + block], pb, Pb, eb, cb)
-            for s in range(0, npair, block)
-        ]).cpu().numpy()
+        """ERI columns W[:, piv] for one pivot block -> (npair, k) numpy,
+        crossing to the host in one transfer (one synchronization per
+        panel)."""
+        return eri_columns(pairs, sel, sel[piv], block).cpu().numpy()
 
     l_cols: list[np.ndarray] = []
     it = 0
@@ -142,6 +134,7 @@ def cholesky_eri_vectors(
 
     if timings is not None:
         timings["cholesky_panels"] = it
+        timings["eri_kernel_launches"] = LAUNCHES["K4"] - launches
     with span("cholesky.unpack", timings, host):
         rank = len(l_cols)
         l_pair = (np.concatenate(l_cols, axis=1) if rank

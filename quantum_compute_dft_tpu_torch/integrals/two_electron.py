@@ -8,22 +8,45 @@ two-stage formulation:
      plus (p, P, coefficient).
   2. *Quartet stage* -- a uniform kernel over (bra pair, ket pair)
      contracting Etilde_bra x Etilde_ket against the Hermite Coulomb
-     tensor R(alpha, P-Q), evaluated on dense (block x block) tiles of the
-     pair list with ``torch.func.vmap``.
+     tensor R(alpha, P-Q).
 
 Schwarz screening (|(ij|kl)| <= Q_ij Q_kl) compacts the pair list before
 the quartet stage.
+
+The quartet stage has three entry points over index lists into a pair
+list (``quartet_pairs``): ``eri_diagonal`` ((ab|ab) alone), ``eri_columns``
+(the (rows, cols) block: a pivot panel of the Cholesky factorization) and
+``eri_matrix`` (the symmetric in-core matrix).  On CUDA tensors each is one
+launch of kernel K4 (``csrc/eri_quartet.cu``: one thread a contracted
+quartet, everything in registers), counted in ``LAUNCHES``; the wrapper
+builds K4 at first use for the pair list's L (nvcc, keyed by a hash of
+the source, as ``engine/fused_xc.py`` builds K1-K3) and binds it with
+ctypes.  On CPU tensors each runs the plain version, ``_quartet_kernel``'s
+eager tiles over blocks of `block` pairs (``eri_*_reference``, which also
+run on the card, for comparison).  No fallback: a CUDA tensor launches K4
+or raises.
 """
 
 from __future__ import annotations
 
+import ctypes
 from math import pi
+from typing import NamedTuple
 
 import numpy as np
 import torch
 from torch.func import vmap
 
 from quantum_compute_dft_tpu_torch.basis.basis_set import NPRIM, BasisSet
+from quantum_compute_dft_tpu_torch.engine.fused_xc import (
+    _on,
+    _stream,
+    build_library,
+)
+from quantum_compute_dft_tpu_torch.integrals.boys import (
+    _TABLE_TERMS,
+    _taylor_table,
+)
 from quantum_compute_dft_tpu_torch.integrals.boys import boys_fast as boys
 from quantum_compute_dft_tpu_torch.integrals.mcmurchie import (
     e_tables,
@@ -151,55 +174,213 @@ def diag_runner(l_bra: int, device):
     return run_diag
 
 
+# ---------------------------------------------------------------------------
+# the quartet stage's entry points: K4 on the card, the eager tiles on the CPU
+# ---------------------------------------------------------------------------
+
+# K4's modes (csrc/eri_quartet.cu::eri_quartet)
+_COLUMNS, _MATRIX, _DIAGONAL = 0, 1, 2
+K4_SOURCES = ("eri_quartet.cu",)
+# K4 launches, counted by the wrapper where it launches
+LAUNCHES = {"K4": 0}
+_K4_LIBS: dict[int, ctypes.CDLL] = {}
+
+
+class QuartetPairs(NamedTuple):
+    """pair_data's Hermite tensors of a pair list (p, P, et, cw: one row a
+    pair) and their angular-momentum bound l_pair = 2 lmax; on CUDA also
+    K4's inputs, made once: the packed table (9, 4 + nc, npair) (per
+    primitive p, P and et * cw, pairs contiguous) and boys_fast's Taylor
+    table at orders 2 l_pair .. 2 l_pair + 7, (nodes, 8)."""
+    p: torch.Tensor
+    P: torch.Tensor
+    et: torch.Tensor
+    cw: torch.Tensor
+    l_pair: int
+    table: torch.Tensor | None = None
+    boys_nodes: torch.Tensor | None = None
+
+
+def quartet_pairs(p, P, et, cw, l_pair: int) -> QuartetPairs:
+    if not p.is_cuda:
+        return QuartetPairs(p, P, et, cw, l_pair)
+    table = torch.cat([p[..., None], P, et * cw[..., None]], dim=-1)
+    mmax = 2 * l_pair
+    nodes = _taylor_table(mmax)[mmax:mmax + _TABLE_TERMS + 1].T
+    return QuartetPairs(
+        p, P, et, cw, l_pair, table.permute(1, 2, 0).contiguous(),
+        torch.as_tensor(np.ascontiguousarray(nodes), dtype=torch.float64,
+                        device=p.device))
+
+
+def _take(pairs: QuartetPairs, idx) -> tuple:
+    idx = torch.as_tensor(np.asarray(idx), device=pairs.p.device)
+    return pairs.p[idx], pairs.P[idx], pairs.et[idx], pairs.cw[idx]
+
+
+def eri_diagonal_reference(pairs: QuartetPairs, rows, block: int):
+    """Plain version of eri_diagonal: the diagonals of the eager
+    (block x block) tiles."""
+    run_diag = diag_runner(pairs.l_pair, pairs.p.device)
+    r = _take(pairs, rows)
+    return torch.cat([run_diag(*(t[s:s + block] for t in r))
+                      for s in range(0, len(rows), block)])
+
+
+def eri_columns_reference(pairs: QuartetPairs, rows, cols, block: int):
+    """Plain version of eri_columns: eager (block x len(cols)) tiles, all
+    queued before the caller's transfer."""
+    quartet = _quartet_kernel(pairs.l_pair, pairs.p.device)
+    r, c = _take(pairs, rows), _take(pairs, cols)
+    return torch.cat([quartet(*(t[s:s + block] for t in r), *c)
+                      for s in range(0, len(rows), block)])
+
+
+def eri_matrix_reference(pairs: QuartetPairs, rows, block: int):
+    """Plain version of eri_matrix: eager (block x block) tiles on and
+    above the diagonal, each off-diagonal tile mirrored."""
+    quartet = _quartet_kernel(pairs.l_pair, pairs.p.device)
+    r = _take(pairs, rows)
+    n = len(rows)
+    W = torch.zeros((n, n), dtype=torch.float64, device=pairs.p.device)
+    for sa in range(0, n, block):
+        ea = min(sa + block, n)
+        for sb in range(sa, n, block):
+            eb = min(sb + block, n)
+            blk = quartet(*(t[sa:ea] for t in r), *(t[sb:eb] for t in r))
+            W[sa:ea, sb:eb] = blk
+            if sb != sa:
+                W[sb:eb, sa:ea] = blk.T
+    return W
+
+
+def eri_diagonal(pairs: QuartetPairs, rows, block: int):
+    """(ab|ab) for the pairs `rows` (indices into `pairs`) -> (len(rows),)
+    f64.  CUDA: one K4 launch (`block` unused); CPU: the plain version."""
+    if pairs.p.is_cuda:
+        return _k4(pairs, _DIAGONAL, rows)
+    return eri_diagonal_reference(pairs, rows, block)
+
+
+def eri_columns(pairs: QuartetPairs, rows, cols, block: int):
+    """W[rows][:, cols], (row pair | column pair) -> (len(rows), len(cols))
+    f64.  CUDA: one K4 launch (`block` unused); CPU: the plain version."""
+    if pairs.p.is_cuda:
+        return _k4(pairs, _COLUMNS, rows, cols)
+    return eri_columns_reference(pairs, rows, cols, block)
+
+
+def eri_matrix(pairs: QuartetPairs, rows, block: int):
+    """The symmetric W over the pairs `rows` -> (len(rows), len(rows)) f64.
+    CUDA: one K4 launch (`block` unused); CPU: the plain version."""
+    if pairs.p.is_cuda:
+        return _k4(pairs, _MATRIX, rows)
+    return eri_matrix_reference(pairs, rows, block)
+
+
+def k4_library(l_pair: int) -> ctypes.CDLL:
+    """K4 built for one L and bound (first use per L builds it)."""
+    if l_pair not in _K4_LIBS:
+        path = build_library(f"eri_quartet_L{l_pair}", K4_SOURCES,
+                             (f"-DK4_L={l_pair}",))
+        lib = ctypes.CDLL(str(path))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.eri_quartet.argtypes = [i, i, p, p, p, i, p, i, p, p]
+        lib.eri_quartet.restype = i
+        lib.eri_quartet_l.restype = i
+        if lib.eri_quartet_l() != l_pair:
+            raise RuntimeError(f"{path} is not K4 at L={l_pair}")
+        _K4_LIBS[l_pair] = lib
+    return _K4_LIBS[l_pair]
+
+
+def _index(idx, npair: int, device) -> torch.Tensor:
+    idx = np.asarray(idx, dtype=np.int64).reshape(-1)
+    if idx.size and (idx.min() < 0 or idx.max() >= npair):
+        raise ValueError(f"pair index outside 0..{npair - 1}")
+    return torch.as_tensor(idx.astype(np.int32), device=device)
+
+
+def _k4(pairs: QuartetPairs, mode: int, rows, cols=None) -> torch.Tensor:
+    if pairs.l_pair not in (0, 2, 4):
+        raise ValueError(f"K4 takes l_pair 0, 2 or 4, not {pairs.l_pair}")
+    table, nodes = pairs.table, pairs.boys_nodes
+    dev = pairs.p.device
+    nf, npair = table.shape[1], table.shape[2]
+    if (table.shape[0] != NPRIM * NPRIM or nf != 4 + pairs.et.shape[-1]
+            or pairs.et.shape[-1] != len(hermite_combos(pairs.l_pair))
+            or nodes.shape[1] != _TABLE_TERMS + 1
+            or table.dtype != torch.float64 or not table.is_contiguous()):
+        raise ValueError("pairs do not hold K4's packed inputs (see "
+                         "quartet_pairs)")
+    r = _index(rows, npair, dev)
+    c = None if cols is None else _index(cols, npair, dev)
+    nrow, ncol = len(r), (0 if c is None else len(c))
+    shape = {_COLUMNS: (nrow, ncol), _MATRIX: (nrow, nrow),
+             _DIAGONAL: (nrow,)}[mode]
+    out = torch.empty(shape, dtype=torch.float64, device=dev)
+    if out.numel() == 0:
+        return out
+    lib = k4_library(pairs.l_pair)
+    with _on(dev):
+        code = lib.eri_quartet(
+            mode, npair, table.data_ptr(), nodes.data_ptr(), r.data_ptr(),
+            nrow, None if c is None else c.data_ptr(), ncol, out.data_ptr(),
+            _stream())
+    if code != 0:
+        raise RuntimeError(f"eri_quartet launch (mode {mode}, {nrow} x "
+                           f"{ncol}): CUDA error {code}")
+    LAUNCHES["K4"] += 1
+    return out
+
+
+def k4_flops(l_pair: int) -> int:
+    """f64 operations of one primitive quartet as K4 computes it (an FMA
+    counts two; exp and rsqrt one each): the pair geometry 14 (P - Q,
+    p + q and its rsqrt, alpha, alpha |PQ|^2), the Boys function's table
+    branch 25 + 4 LT (LT = 2 l_pair: the node, 7 Taylor steps, exp, the
+    downward recursion), (-2 alpha)^n LT + 1, the R recursion (one product
+    an entry, plus an FMA where the recursion index is above 1, and one
+    product for each layer's R_000), the contraction 2 nc^2 + 2 nc (nc
+    Hermite combinations a pair) and the prefactor and the sum 5."""
+    lt = 2 * l_pair
+    rec = 0
+    for n in range(lt, -1, -1):
+        for (t, u, v) in hermite_combos(lt - n)[1:]:
+            k = t if t > 0 else u if u > 0 else v
+            rec += 1 if k == 1 else 3
+        rec += 1
+    nc = len(hermite_combos(l_pair))
+    return 14 + 25 + 4 * lt + lt + 1 + rec + 2 * nc * nc + 2 * nc + 5
+
+
 def eri_packed(basis: BasisSet, screen_tol: float = 1e-12,
                block: int | None = None, device="cpu"):
     """ERIs over unique cartesian AO pairs: returns (pair_idx, W) with
     W[a, b] = (i_a j_a | i_b j_b) for the Schwarz-surviving pair list
-    (W a float64 tensor on `device`)."""
+    (W a float64 tensor on `device`).  On the card the diagonal and W are
+    one K4 launch each; `block` (pairs per eager tile) tiles only the CPU
+    path."""
     lmax = int(basis.cart_powers.max())
     if block is None:
-        # cap the vmapped quartet intermediate (~nc^2 * 81 doubles/quartet)
+        # cap the quartet intermediate (~nc^2 * 81 doubles/quartet)
         block = 64 if lmax <= 1 else 16
-    f64 = torch.float64
 
     iu, ju, p_all, P_all, et_all, cw = pair_data(basis, device)
-    npair_all = len(iu)
-    quartet = _quartet_kernel(2 * lmax, device)
-    run_diag = diag_runner(2 * lmax, device)
+    pairs = quartet_pairs(p_all, P_all, et_all, cw, 2 * lmax)
 
     # --- Schwarz factors: Q_ab = sqrt((ab|ab)) ---
-    diag = torch.cat([
-        run_diag(p_all[s:s + block], P_all[s:s + block],
-                 et_all[s:s + block], cw[s:s + block])
-        for s in range(0, npair_all, block)
-    ])
+    diag = eri_diagonal(pairs, np.arange(len(iu)), block)
     q_fac = torch.sqrt(torch.abs(diag)).cpu().numpy()
     keep = q_fac * q_fac.max() > screen_tol
     sel = np.nonzero(keep)[0]
-    npair = len(sel)
-    sel_t = torch.as_tensor(sel, device=device)
-    p_s, P_s, et_s, cw_s = (p_all[sel_t], P_all[sel_t], et_all[sel_t],
-                            cw[sel_t])
-
-    W = torch.zeros((npair, npair), dtype=f64, device=device)
-    for sa in range(0, npair, block):
-        ea = min(sa + block, npair)
-        for sb in range(sa, npair, block):
-            eb = min(sb + block, npair)
-            blk = quartet(
-                p_s[sa:ea], P_s[sa:ea], et_s[sa:ea], cw_s[sa:ea],
-                p_s[sb:eb], P_s[sb:eb], et_s[sb:eb], cw_s[sb:eb],
-            )
-            W[sa:ea, sb:eb] = blk
-            if sb != sa:
-                W[sb:eb, sa:ea] = blk.T
-    return (iu[sel], ju[sel]), W
+    return (iu[sel], ju[sel]), eri_matrix(pairs, sel, block)
 
 
 def eri_full(basis: BasisSet, screen_tol: float = 1e-12,
              block: int | None = None, device="cpu") -> torch.Tensor:
     """Full (nao, nao, nao, nao) spherical-AO ERI tensor, float64 on
-    `device`."""
+    `device` (`block`: eri_packed's, the CPU path's tile)."""
     (pi_, pj_), W = eri_packed(basis, screen_tol, block, device)
     n = basis.ncart
     npair = len(pi_)

@@ -27,6 +27,7 @@ from quantum_compute_dft_tpu_torch.integrals import eri_full, one_electron
 from quantum_compute_dft_tpu_torch.integrals.cholesky import (
     cholesky_eri_vectors,
 )
+from quantum_compute_dft_tpu_torch.integrals.two_electron import LAUNCHES
 from quantum_compute_dft_tpu_torch.integrals.density_fitting import (
     AUX_LEVELS,
     df_tensors,
@@ -75,7 +76,9 @@ class KSSetup:
     # system_s (uploads, S^-1/2 and the factor's copies); inside them, the
     # setup cache's cache_load_s and cache_store_s (the store's copy to the
     # host included) and, when the Cholesky ran, its cholesky_card_s,
-    # cholesky_host_s and cholesky_panels (integrals/cholesky.py)
+    # cholesky_host_s and cholesky_panels (integrals/cholesky.py); when the
+    # Cholesky or the in-core ERIs ran, eri_kernel_launches (K4 launches,
+    # integrals/two_electron.py: 0 on the CPU)
     setup_split: dict | None = None
     # the artifacts loaded from the setup cache instead of built: any of
     # "int1e", "cdvec" (the Cholesky factor), "eri", "grid"
@@ -172,11 +175,17 @@ def prepare(
             j3c = v2c = None
         elif not density_fit:
             df_aux = None
+
+            def incore():
+                launches = LAUNCHES["K4"]
+                out = eri_full(basis, device=device)
+                extra["eri_kernel_launches"] = LAUNCHES["K4"] - launches
+                return (out,)
+
             if basis.nao <= CACHE_ERI_NAO:
-                (eri,) = cached("eri", ck, ("eri",),
-                                lambda: (eri_full(basis, device=device),))
+                (eri,) = cached("eri", ck, ("eri",), incore)
             else:
-                eri = eri_full(basis, device=device)
+                (eri,) = incore()
         elif df_aux == "parity":
             t_df = time.time()
 

@@ -35,6 +35,7 @@ from quantum_compute_dft_tpu.mol import from_xyz_file as jax_from_xyz_file
 from quantum_compute_dft_tpu.scf.driver import scf_host as jax_scf_host
 from quantum_compute_dft_tpu_torch import kohn_sham
 from quantum_compute_dft_tpu_torch.basis import build_basis
+from quantum_compute_dft_tpu_torch.integrals import cholesky, two_electron
 from quantum_compute_dft_tpu_torch.integrals import density_fitting as df
 from quantum_compute_dft_tpu_torch.integrals.cholesky import (
     cholesky_eri_vectors,
@@ -156,3 +157,64 @@ def test_cli_density_fit_on_cpu():
     e = float(out.stdout.split("Total energy :")[1].split()[0])
     # the JAX package's in-core f64 SCF on the same input
     assert abs(e - (-75.32004987)) < 1e-6
+
+
+def _old_diagonal(pairs, rows, block):
+    """The Cholesky's residual diagonal as it ran before its entry point:
+    diag_runner's tiles over the whole pair list."""
+    run_diag = two_electron.diag_runner(pairs.l_pair, "cpu")
+    assert np.array_equal(rows, np.arange(len(pairs.p)))
+    return torch.cat([run_diag(pairs.p[s:s + block], pairs.P[s:s + block],
+                               pairs.et[s:s + block], pairs.cw[s:s + block])
+                      for s in range(0, len(rows), block)])
+
+
+def _old_columns(pairs, rows, cols, block):
+    """A pivot panel as the Cholesky's run_panel ran it before its entry
+    point: the screened pairs gathered, their rows in blocks against the
+    pivots' pairs."""
+    run_block = two_electron._quartet_kernel(pairs.l_pair, "cpu")
+    sel_t = torch.as_tensor(rows)
+    p_s, P_s, et_s, cw_s = (pairs.p[sel_t], pairs.P[sel_t],
+                            pairs.et[sel_t], pairs.cw[sel_t])
+    pos = {int(r): i for i, r in enumerate(rows)}
+    pt = torch.as_tensor([pos[int(c)] for c in cols])
+    pb, Pb, eb, cb = p_s[pt], P_s[pt], et_s[pt], cw_s[pt]
+    return torch.cat([
+        run_block(p_s[s:s + block], P_s[s:s + block], et_s[s:s + block],
+                  cw_s[s:s + block], pb, Pb, eb, cb)
+        for s in range(0, len(rows), block)])
+
+
+@pytest.mark.parametrize("block", [8, 128])
+def test_cholesky_on_the_cpu_launches_no_kernel_and_keeps_its_factor(
+        block, monkeypatch):
+    """On the CPU the factorization reports eri_kernel_launches 0 and its
+    factor is bitwise the one of the per-block loops it ran before (blocks
+    of 8: a ragged last row block and several panels; 128: one of each)."""
+    basis = build_basis(from_xyz_file(H2O))
+    t = {}
+    new = cholesky_eri_vectors(basis, block=block, timings=t)
+    assert t["eri_kernel_launches"] == 0 and t["cholesky_panels"] >= 1
+    monkeypatch.setattr(cholesky, "eri_diagonal", _old_diagonal)
+    monkeypatch.setattr(cholesky, "eri_columns", _old_columns)
+    t_old = {}
+    assert torch.equal(cholesky_eri_vectors(basis, block=block,
+                                            timings=t_old), new)
+    assert t_old["cholesky_panels"] == t["cholesky_panels"]
+
+
+@pytest.mark.parametrize("density_fit", [False, True])
+def test_prepare_reports_eri_kernel_launches(density_fit, tmp_path,
+                                             monkeypatch):
+    """setup_split carries eri_kernel_launches where the quartet stage ran
+    (the in-core ERIs or the Cholesky; 0 on the CPU) and not where the
+    setup cache served them."""
+    monkeypatch.setenv("DFT_SETUP_CACHE_DIR", str(tmp_path))
+    mol = from_xyz_file(H2O)
+    cold, warm = (kohn_sham.prepare(mol, "LDA", grid_level=1,
+                                    density_fit=density_fit,
+                                    device="cpu").setup_split
+                  for _ in range(2))
+    assert cold["eri_kernel_launches"] == 0
+    assert "eri_kernel_launches" not in warm

@@ -346,3 +346,39 @@ def test_scf_jit_graphs_match_the_eager_cycle(density_fit):
     assert float(torch.abs(dm - st["dm"]).max()) < 1e-10
     ref = scf_host(s, fn, xc_impl="f64")
     assert ref.converged and abs(eb.e_tot - ref.e_tot) < 1e-9
+
+
+@pytest.mark.parametrize("entry", ["panel", "diagonal", "matrix"])
+@pytest.mark.parametrize("molecule", ["H2", "H2O", "H2Se"])
+def test_cuda_k4_matches_plain_version(molecule, entry):
+    """K4 (csrc/eri_quartet.cu) against the eager tiles on the card at
+    L = 0, 2 and 4 (H2, H2O, H2Se): one launch a call, within 1e-12 of max
+    |W| (both f64, other summation order), a ragged pivot list of 11 and
+    every 3rd pair as rows."""
+    from quantum_compute_dft_tpu_torch.integrals import two_electron as te
+    from quantum_compute_dft_tpu_torch.mol import from_xyz_text
+
+    dev = _cuda()
+    mol = (from_xyz_text("H 0 0 0\nH 0 0 0.74") if molecule == "H2" else
+           from_xyz_file(os.path.join(ROOT, "molecules", molecule + ".xyz")))
+    basis = build_basis(mol)
+    iu, _, *hermite = te.pair_data(basis, dev)
+    pairs = te.quartet_pairs(*hermite, 2 * int(basis.cart_powers.max()))
+    rows = np.arange(0, len(iu), 3)
+    cols = np.random.default_rng(15).choice(len(iu), min(11, len(iu)),
+                                            replace=False)
+    call = {"panel": (te.eri_columns, te.eri_columns_reference,
+                      (pairs, rows, cols, 8)),
+            "diagonal": (te.eri_diagonal, te.eri_diagonal_reference,
+                         (pairs, rows, 8)),
+            "matrix": (te.eri_matrix, te.eri_matrix_reference,
+                       (pairs, rows, 8))}[entry]
+    before = te.LAUNCHES["K4"]
+    out = call[0](*call[2])
+    torch.cuda.synchronize()  # a fault shows at the kernel that made it
+    ref = call[1](*call[2])
+    assert te.LAUNCHES["K4"] == before + 1
+    assert out.shape == ref.shape and out.is_cuda
+    assert float((out - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+    if entry == "matrix":
+        assert torch.equal(out, out.T)

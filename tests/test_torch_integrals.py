@@ -27,7 +27,9 @@ from quantum_compute_dft_tpu_torch.integrals import (
     boys_fast,
     eri_full,
     one_electron,
+    two_electron,
 )
+from quantum_compute_dft_tpu_torch.integrals.mcmurchie import hermite_combos
 from quantum_compute_dft_tpu_torch.mol import from_xyz_file, from_xyz_text
 
 torch.set_num_threads(1)
@@ -110,3 +112,82 @@ def test_h2_literature_anchors():
     assert abs(eri[0, 1, 0, 1] - 0.2970) < 2e-4
     assert abs(eri[0, 0, 0, 1] - 0.4441) < 2e-4
     assert abs(_rhf(mol) - (-1.116714)) < 1e-5
+
+
+# --- the quartet stage's entry points against the per-block loops they
+# replaced (the eager tiles of _quartet_kernel over the gathered pair list,
+# as eri_packed and the Cholesky ran them); on the CPU both are the plain
+# version, so they agree to 1e-14 relative (bitwise, as run here).  H2O has
+# s and p shells (L = 2); H2Se's d shells make L = 4, on every 6th pair to
+# keep the CPU time down.  Blocks of 8 leave a ragged last block.
+
+
+def _old_loop(entry, rows, cols, block, p_all, P_all, et_all, cw, l_pair):
+    sel_t = torch.as_tensor(rows)
+    p_s, P_s, et_s, cw_s = (p_all[sel_t], P_all[sel_t], et_all[sel_t],
+                            cw[sel_t])
+    n = len(rows)
+    if entry == "diagonal":
+        run_diag = two_electron.diag_runner(l_pair, "cpu")
+        return torch.cat([
+            run_diag(p_s[s:s + block], P_s[s:s + block], et_s[s:s + block],
+                     cw_s[s:s + block])
+            for s in range(0, n, block)])
+    quartet = two_electron._quartet_kernel(l_pair, "cpu")
+    if entry == "panel":
+        pt = torch.as_tensor(cols)
+        pb, Pb, eb, cb = p_s[pt], P_s[pt], et_s[pt], cw_s[pt]
+        return torch.cat([
+            quartet(p_s[s:s + block], P_s[s:s + block], et_s[s:s + block],
+                    cw_s[s:s + block], pb, Pb, eb, cb)
+            for s in range(0, n, block)])
+    W = torch.zeros((n, n), dtype=torch.float64)
+    for sa in range(0, n, block):
+        ea = min(sa + block, n)
+        for sb in range(sa, n, block):
+            eb = min(sb + block, n)
+            blk = quartet(p_s[sa:ea], P_s[sa:ea], et_s[sa:ea], cw_s[sa:ea],
+                          p_s[sb:eb], P_s[sb:eb], et_s[sb:eb], cw_s[sb:eb])
+            W[sa:ea, sb:eb] = blk
+            if sb != sa:
+                W[sb:eb, sa:ea] = blk.T
+    return W
+
+
+@pytest.mark.parametrize("entry", ["panel", "diagonal", "matrix"])
+@pytest.mark.parametrize("name,stride", [("H2O", 1), ("H2Se", 6)])
+def test_quartet_entry_points_match_the_block_loop(name, stride, entry):
+    bas = build_basis(from_xyz_file(_xyz(name)))
+    l_pair = 2 * int(bas.cart_powers.max())
+    iu, _, *hermite = two_electron.pair_data(bas)
+    pairs = two_electron.quartet_pairs(*hermite, l_pair)
+    rows = np.arange(0, len(iu), stride)
+    assert len(rows) % 8 and pairs.table is None
+    # a pivot list as the Cholesky hands it: positions in `rows`
+    piv = np.random.default_rng(3).choice(len(rows), 11, replace=False)
+    before = two_electron.LAUNCHES["K4"]
+    if entry == "panel":
+        new = two_electron.eri_columns(pairs, rows, rows[piv], 8)
+    elif entry == "diagonal":
+        new = two_electron.eri_diagonal(pairs, rows, 8)
+    else:
+        new = two_electron.eri_matrix(pairs, rows, 8)
+    old = _old_loop(entry, rows, piv, 8, *hermite, l_pair)
+    assert two_electron.LAUNCHES["K4"] == before
+    assert new.shape == old.shape and new.dtype == torch.float64
+    assert (new - old).abs().max() <= 1e-14 * old.abs().max()
+    if entry == "matrix":
+        # the plain diagonal tiles are computed whole, not mirrored
+        assert (new - new.T).abs().max() <= 1e-14 * new.abs().max()
+        assert torch.allclose(torch.diagonal(new),
+                              two_electron.eri_diagonal(pairs, rows, 8),
+                              rtol=1e-14, atol=0)
+
+
+@pytest.mark.parametrize("l_pair,nc,flops", [(0, 1, 50), (2, 10, 417),
+                                             (4, 35, 3744)])
+def test_k4_operation_count(l_pair, nc, flops):
+    """K4's stated f64 operations a primitive quartet, which set its bound
+    in chip_smoke.py (the csrc/eri_quartet.cu note quotes them)."""
+    assert len(hermite_combos(l_pair)) == nc
+    assert two_electron.k4_flops(l_pair) == flops

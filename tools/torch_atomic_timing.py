@@ -7,7 +7,9 @@ on the host against on the device, each energy against the JAX package's.
 
 For each element at its table zetas: seconds of atom_integrals, and of
 eri_full alone per block size (the largest difference from
-atom_integrals' ERIs beside it), then seconds of atomic_scf (the SCF
+atom_integrals' ERIs beside it; on the card every block size runs the
+same two K4 launches, since `block` tiles only the CPU path's eager
+quartets), then seconds of atomic_scf (the SCF
 loop) on host copies of the tensors, as atomic_energy runs it, and on the
 device, the median of --reps runs each, and both energies minus
 docs/atomic_reference_cpu.json (tools/atomic_reference.py).  One JSON line per element, with the card's
