@@ -167,6 +167,17 @@ raises and the script exits non-zero without the final line):
      variant, one launch of each variant's kernel per kernel call it made,
      each E within 1e-5 of its plain version; K3, phi3, nophi and nov read
      against K1 (the rows on its kernels)
+  6. one B3LYP job on Vitamin-B2 (nao 155, the pivoted Cholesky, grid 3)
+     through cli.run as the benchmark's vitb2.sto3g.grid3.cd runs it, within
+     the configuration's 3e-6 Eh of the plain reference (bench_torch/
+     reference), with torch.cuda.synchronize() after each; its K builds:
+     the f32 aux-major K in each kernel-phase cycle, the f64 K in each
+     verify cycle and the final energy
+
+Phase 4 holds the port to the JAX package's recorded energies, which carry
+its GGA potential (half the sigma term of dE_xc/dD): its SCFs run with
+half_sigma=True (JAX_PARITY).  Phases 3 and 6 run the default, so phase 3
+holds K1 to its plain version and to the f64 engine at V_xc = dE_xc/dD.
 
 The last three lines are the kernels' JSON record (every kernel with its
 launches on its path, its largest deviation from its plain version, its
@@ -210,6 +221,16 @@ K4_TOL = 1e-12
 # the card's f64 peaks (NVIDIA's H100 SXM data sheet): tensor-core FMA and
 # the vector units
 F64_PEAK, F64_VECTOR = 67e12, 34e12
+# phase 4 holds the port to the JAX package's recorded energies (BENCH,
+# docs/RESULTS.md, the golden rows, the RI references, the north star, the
+# sweep, the rescue record), whose GGA potential has half the sigma term of
+# dE_xc/dD: every SCF there runs with the keyword that reproduces it
+# (cli.run, scf_host, scf_jit); phases 3 and 6 run the default.  Its
+# Cholesky factor is at 1e-7 for every functional (the port takes 1e-8
+# under exact exchange): a prepare or job compared with it passes CD_TOL
+JAX_PARITY = dict(half_sigma=True)
+CD_TOL = 1e-7
+JAX_CLI = dict(JAX_PARITY, cd_tol=CD_TOL)
 BENZENE_E = -229.10950264    # BENCH_r05.json, Benzene PBE grid 3
 BENZENE_TOL = 1e-6
 # docs/RESULTS.md:61, 68 (B3LYP grid 3, density-fitted).  The reference
@@ -838,7 +859,7 @@ def _cli(fname, mol, dev, e_ref, *args):
     t1 = time.time()
     setup, res, scf_s = cli.run([
         fname, mol, "--molecules-dir", os.path.join(HERE, "molecules"),
-        "--grid-level", "3", "--device", dev.type, *args])
+        "--grid-level", "3", "--device", dev.type, *args], **JAX_CLI)
     torch.cuda.synchronize()
     dref = "n/a" if e_ref is None else f"{res.e_tot - e_ref:+.2e}"
     jk = cli.jk_label(setup)
@@ -1031,7 +1052,8 @@ def phase_ri(dev, cholesky_s):
         peak = torch.cuda.max_memory_allocated(dev) / 1e9
         for xc_impl in schedules:
             t1 = time.time()
-            res = scf_host(setup.sys, setup.functional, xc_impl=xc_impl)
+            res = scf_host(setup.sys, setup.functional, xc_impl=xc_impl,
+                           **JAX_PARITY)
             torch.cuda.synchronize()
             if not res.converged:
                 raise AssertionError(f"DHA B3LYP {tier} tier, {xc_impl}: did "
@@ -1142,7 +1164,7 @@ def _cli_quiet(fname, mol, dev, *args):
     with contextlib.redirect_stdout(out):
         setup, res, scf_s = cli.run([
             fname, mol, "--molecules-dir", os.path.join(HERE, "molecules"),
-            "--grid-level", "3", "--device", dev.type, *args])
+            "--grid-level", "3", "--device", dev.type, *args], **JAX_CLI)
     torch.cuda.synchronize()
     return setup, res, scf_s, out.getvalue()
 
@@ -1179,21 +1201,22 @@ def _jit_vs_host(label, setup, dev, rec):
 
     s, fn = setup.sys, setup.functional
     t0 = time.time()
-    jit = scf_jit(s, fn)
+    jit = scf_jit(s, fn, **JAX_PARITY)
     w_jit = time.time() - t0
     block, driver.JIT_BLOCK = driver.JIT_BLOCK, 1
     try:
         t0 = time.time()
-        scf_jit(s, fn)
+        scf_jit(s, fn, **JAX_PARITY)
         w_jit1 = time.time() - t0
     finally:
         driver.JIT_BLOCK = block
     t0 = time.time()
-    host = scf_host(s, fn, xc_impl="f64")
+    host = scf_host(s, fn, xc_impl="f64", **JAX_PARITY)
     w_host = time.time() - t0
-    _, pw_jit, busy_jit, share_jit = _profiled(lambda: scf_jit(s, fn), dev)
+    _, pw_jit, busy_jit, share_jit = _profiled(
+        lambda: scf_jit(s, fn, **JAX_PARITY), dev)
     _, pw_host, busy_host, share_host = _profiled(
-        lambda: scf_host(s, fn, xc_impl="f64"), dev)
+        lambda: scf_host(s, fn, xc_impl="f64", **JAX_PARITY), dev)
     rec[label] = {"jit_cycles": jit[2], "host_cycles": host.n_iter,
                   "jit_wall_s": w_jit, "jit_block1_wall_s": w_jit1,
                   "host_wall_s": w_host,
@@ -1280,7 +1303,8 @@ def phase_cli(dev):
             raise AssertionError("4f (b): the warm Decane run did not load "
                                  "the factor and grid, or departs")
         dha = from_xyz_file(os.path.join(HERE, "molecules", "DHA.xyz"))
-        cold = kohn_sham.prepare(dha, "B3LYP", grid_level=3, device=dev)
+        cold = kohn_sham.prepare(dha, "B3LYP", grid_level=3, device=dev,
+                                 cd_tol=CD_TOL)
         print(f"  (b) B3LYP DHA setup cold {cold.build_time:.3f} s "
               f"(Cholesky {cold.df_time:.3f} s)", flush=True)
         rec["dha_cache"] = {"cold_setup_s": cold.build_time,
@@ -1296,7 +1320,8 @@ def phase_cli(dev):
             if ref_label is None:
                 from quantum_compute_dft_tpu_torch.scf.driver import scf_host
 
-                host = scf_host(setup.sys, setup.functional, xc_impl="f64")
+                host = scf_host(setup.sys, setup.functional, xc_impl="f64",
+                                **JAX_PARITY)
             else:
                 rec["dha_cache"].update(warm_setup_s=setup.build_time,
                                         warm_hits=setup.cache_hits)
@@ -1589,13 +1614,13 @@ def phase_rescue(dev):
                                      proto["molecule"] + ".xyz"))
     _reset_launches()
     setup = kohn_sham.prepare(mol, "B3LYP", grid_level=proto["grid_level"],
-                              device=dev)
+                              device=dev, cd_tol=CD_TOL)
     torch.cuda.synchronize()
     setup_s = time.time() - t0
     cycles = []
 
     def counted(*args, **kw):
-        r = scf_host(*args, **kw)
+        r = scf_host(*args, **kw, **JAX_PARITY)
         cycles.append(r.n_iter)
         return r
 
@@ -1661,6 +1686,62 @@ def phase_sweep():
     return launches
 
 
+def phase_vitamin_b2(dev):
+    """6: one B3LYP job on Vitamin-B2 (riboflavin, nao 155, the pivoted
+    Cholesky) through cli.run as the benchmark's configuration
+    vitb2.sto3g.grid3.cd runs it, at the default V_xc = dE_xc/dD, held to
+    the plain reference of bench_torch/reference at the configuration's
+    limit; its K builds are the f32 aux-major K's in the kernel phase and
+    the f64 K's in the verify cycles and the final energy."""
+    import contextlib
+    import gc
+    import io
+
+    import torch
+
+    from bench_torch import harness
+    from quantum_compute_dft_tpu_torch import cli
+
+    t0 = time.time()
+    cfg = harness.load_json(os.path.join(HERE, "bench_torch", "configs",
+                                         "vitb2.sto3g.grid3.cd.json"))
+    path = os.path.join(HERE, cfg["molecule"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        setup, res, scf_s = cli.run(["B3LYP", path, *cfg["argv"], "--device",
+                                     dev.type])
+    torch.cuda.synchronize()
+    job_s = time.time() - t0
+    e, nao, ngrid = res.e_tot, setup.nao, setup.ngrid
+    counts = (res.fast_cycles, res.verify_cycles, res.k_builds_fast,
+              res.k_builds_f64)
+    del setup, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.time()
+    syms, xyz = harness.read_xyz(path)
+    e_ref = harness.reference_energies(cfg, ["B3LYP"], syms, xyz,
+                                       dev)["B3LYP"]
+    torch.cuda.synchronize()
+    gap = abs(e - e_ref)
+    print(f"  B3LYP Vitamin-B2 nao={nao} ngrid={ngrid}: E={e:.10f}, "
+          f"reference {e_ref:.10f}, |dE| {gap:.3e} (limit "
+          f"{cfg['energy_limit_eh']:g}); cycles kernel {counts[0]} + verify "
+          f"{counts[1]}, K builds f32 {counts[2]} / f64 {counts[3]}; job "
+          f"{job_s:.2f} s (SCF {scf_s:.3f} s), reference "
+          f"{time.time() - t1:.2f} s", flush=True)
+    if (nao, ngrid) != (cfg["nao"], 553156):
+        raise AssertionError(f"6: nao {nao}, ngrid {ngrid}: not the "
+                             "configuration's")
+    if not gap < cfg["energy_limit_eh"]:
+        raise AssertionError(f"6: Vitamin-B2 B3LYP {e} vs the reference "
+                             f"{e_ref}")
+    if counts[2] != counts[0] or counts[3] != counts[1] + 1:
+        raise AssertionError(f"6: K builds {counts[2:]} for cycles "
+                             f"{counts[:2]}")
+    _phase("6 Vitamin-B2 B3LYP", t0, f"within {gap:.2e} Eh of the plain "
+           "reference")
+
+
 def main() -> int:
     # every phase times cold setup builds; phase 4f turns the setup cache
     # on in a directory of its own
@@ -1686,6 +1767,7 @@ def main() -> int:
     tools = phase_tools(dev)
     rescue = phase_rescue(dev)
     sweep = phase_sweep()
+    phase_vitamin_b2(dev)
 
     kernels = []
     for kid in REPLACES:

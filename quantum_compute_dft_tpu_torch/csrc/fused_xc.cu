@@ -15,8 +15,12 @@
 //   grad rho_k = 2 sum_mu dAO_k,mu,g phi_D,mu ;  sigma = |grad rho|^2
 //   (e, vrho, vsigma) = functional (xc_functional.cuh: floors, f32 clamps)
 //   E   = sum_g w e
-//   B^T = w vrho AO + 2 w vsigma sum_k grad_k rho dAO_k
+//   B^T = w vrho AO + c w vsigma sum_k grad_k rho dAO_k
 //   V   = AO B ;  V_out = (V + V^T) / 2
+//
+// c = 4 (the u_scale argument of the entries) makes V_out = dE_xc/dD; the
+// JAX package's kernel has c = 2, half the sigma term, which u_scale = 2
+// reproduces for comparisons with it.
 //
 // The four-kernel pipeline: K1base (the GGA body as K1 ran it before its
 // redesign, kept as the base noprod and nofunc are timed against), the
@@ -66,7 +70,7 @@
 //      tiles do not fit in shared memory beside D and two AO tiles at npad
 //      152).
 //      Then, per point (shuffles, then shared memory, fixed order), the
-//      functional (xc_functional.cuh), s_g = w vrho, (K1) u_k,g = 2 w vsigma
+//      functional (xc_functional.cuh), s_g = w vrho, (K1) u_k,g = c w vsigma
 //      grad_k rho, and the tile's E partial: 1 (K2) or 4 (K1) floats a
 //      point where the old design wrote a phi_D plane.  AO and the gradient
 //      planes are read from HBM once.  Where D fits in shared memory (npad
@@ -857,7 +861,7 @@ __device__ __forceinline__ void rho_pass_end(const float* ao_s, int p0,
 }
 
 // The tile's sums per point over the four warp columns of red_s (a fixed
-// order), the functional, s_g = w vrho, (GGA) u_k,g = 2 w vsigma grad_k rho
+// order), the functional, s_g = w vrho, (GGA) u_k,g = c w vsigma grad_k rho
 // with grad_k rho = 2 sum phi_D dAO_k, and the tile's E partial (a fixed
 // tree).  gtid: the thread in its group; bar: the group's barrier.
 template <int KIND>
@@ -865,7 +869,7 @@ __device__ __forceinline__ void rho_finish(float (*red_s)[4][kRhoCols],
                                            int gtid, int tile, int bar,
                                            int gpad, const float* wt,
                                            float* s_out, float* u_out,
-                                           float* e_part) {
+                                           float* e_part, float u_scale) {
   constexpr int NQ = rho_nq(KIND);
   bar_sync(bar);
   const int g = tile * kRhoCols + gtid;
@@ -887,7 +891,7 @@ __device__ __forceinline__ void rho_finish(float (*red_s)[4][kRhoCols],
     const float w = wt[g];
     s_out[g] = w * vr;
     if constexpr (NQ == 4) {
-      const float wvs = 2.f * w * vs;
+      const float wvs = u_scale * w * vs;
 #pragma unroll
       for (int k = 0; k < 3; ++k) u_out[(size_t)k * gpad + g] = wvs * gr[k];
     }
@@ -918,7 +922,8 @@ __global__ void __launch_bounds__(256, 2)
 xc_rho_kernel(int npad, int gpad, const float* __restrict__ dm,
               const float* __restrict__ aot, GradPlanes gp,
               const float* __restrict__ wt, float* __restrict__ s_out,
-              float* __restrict__ u_out, float* __restrict__ e_part) {
+              float* __restrict__ u_out, float* __restrict__ e_part,
+              float u_scale) {
   constexpr int NQ = rho_nq(KIND);
   constexpr int CS = rho_col_stride(MODE);
   extern __shared__ __align__(16) float smem[];
@@ -1011,7 +1016,8 @@ xc_rho_kernel(int npad, int gpad, const float* __restrict__ dm,
       rho_pass_end<NQ, CS>(ao_s, p0, mu0, mine, acc, gp, (size_t)col0 + p0,
                            gpad, red_s, wn, t, base == 0);
   }
-  rho_finish<KIND>(red_s, tid, blockIdx.x, 0, gpad, wt, s_out, u_out, e_part);
+  rho_finish<KIND>(red_s, tid, blockIdx.x, 0, gpad, wt, s_out, u_out, e_part,
+                   u_scale);
 }
 
 // xc_rho_res_kernel (resident D, npad <= 176 for K2, <= 168 for K1, in
@@ -1028,7 +1034,8 @@ __global__ void __launch_bounds__(kResThreads, 1)
 xc_rho_res_kernel(int npad, int gpad, const float* __restrict__ dm,
                   const float* __restrict__ aot, GradPlanes gp,
                   const float* __restrict__ wt, float* __restrict__ s_out,
-                  float* __restrict__ u_out, float* __restrict__ e_part) {
+                  float* __restrict__ u_out, float* __restrict__ e_part,
+                  float u_scale) {
   constexpr int NQ = rho_nq(KIND);
   constexpr int CS = rho_col_stride(MODE);
   extern __shared__ __align__(16) float smem[];
@@ -1106,7 +1113,7 @@ xc_rho_res_kernel(int npad, int gpad, const float* __restrict__ dm,
                            t, base == 0);
     }
     rho_finish<KIND>(red_s[grp], gtid, tile, 1 + grp, gpad, wt, s_out, u_out,
-                     e_part);
+                     e_part, u_scale);
   }
 }
 
@@ -1507,7 +1514,8 @@ __global__ void __launch_bounds__(kPointBlock)
 xc_point_kernel(int npad, int gpad, const float* __restrict__ aot,
                 const float* __restrict__ gx, const float* __restrict__ gy,
                 const float* __restrict__ gz, const float* __restrict__ wt,
-                float* __restrict__ phi_bt, float* __restrict__ e_part) {
+                float* __restrict__ phi_bt, float* __restrict__ e_part,
+                float u_scale) {
   constexpr bool kGrad = (KIND == 1 || KIND == 2);
   constexpr bool kProd = !(VAR & kNoProd);
   constexpr bool kSplit = (VAR & kSplit2) != 0;
@@ -1582,7 +1590,7 @@ xc_point_kernel(int npad, int gpad, const float* __restrict__ aot,
   // B^T column: padded rows have AO = dAO = 0 and padded points w = 0, so
   // both contribute exact zeros to V
   const float wvr = w * vr;
-  const float wvs = 2.f * w * vs;
+  const float wvs = u_scale * w * vs;
   const float ux = wvs * grx, uy = wvs * gry, uz = wvs * grz;
   for (int mu = 0; mu < npad; ++mu) {
     const size_t o = (size_t)mu * gpad + g;
@@ -1708,9 +1716,10 @@ __global__ void xc_eval_kernel(int n, const float* __restrict__ rho,
 template <int KIND, int VAR>
 cudaError_t launch_point(int npad, int gpad, const float* aot, const float* gx,
                          const float* gy, const float* gz, const float* wt,
-                         float* phi_bt, float* e_part, cudaStream_t stream) {
+                         float* phi_bt, float* e_part, float u_scale,
+                         cudaStream_t stream) {
   xc_point_kernel<KIND, VAR><<<gpad / kPointBlock, kPointBlock, 0, stream>>>(
-      npad, gpad, aot, gx, gy, gz, wt, phi_bt, e_part);
+      npad, gpad, aot, gx, gy, gz, wt, phi_bt, e_part, u_scale);
   return cudaGetLastError();
 }
 
@@ -1720,16 +1729,16 @@ template <int KIND>
 cudaError_t launch_point_var(int var, int npad, int gpad, const float* aot,
                              const float* gx, const float* gy, const float* gz,
                              const float* wt, float* phi_bt, float* e_part,
-                             cudaStream_t stream) {
+                             float u_scale, cudaStream_t stream) {
   switch (var & kPointBits) {
-    case 0: return launch_point<KIND, 0>(npad, gpad, aot, gx, gy, gz, wt, phi_bt, e_part, stream);
-    case kSplit2: return launch_point<KIND, kSplit2>(npad, gpad, aot, gx, gy, gz, wt, phi_bt, e_part, stream);
+    case 0: return launch_point<KIND, 0>(npad, gpad, aot, gx, gy, gz, wt, phi_bt, e_part, u_scale, stream);
+    case kSplit2: return launch_point<KIND, kSplit2>(npad, gpad, aot, gx, gy, gz, wt, phi_bt, e_part, u_scale, stream);
     default: break;
   }
   if constexpr (KIND == 1 || KIND == 2) {
     switch (var & kPointBits) {
-      case kNoProd: return launch_point<KIND, kNoProd>(npad, gpad, aot, gx, gy, gz, wt, phi_bt, e_part, stream);
-      case kNoFunc: return launch_point<KIND, kNoFunc>(npad, gpad, aot, gx, gy, gz, wt, phi_bt, e_part, stream);
+      case kNoProd: return launch_point<KIND, kNoProd>(npad, gpad, aot, gx, gy, gz, wt, phi_bt, e_part, u_scale, stream);
+      case kNoFunc: return launch_point<KIND, kNoFunc>(npad, gpad, aot, gx, gy, gz, wt, phi_bt, e_part, u_scale, stream);
       default: break;
     }
   }
@@ -1757,7 +1766,8 @@ cudaError_t allow_smem(const void* kernel, size_t bytes, size_t (&done)[64]) {
 template <int KIND, int MODE>
 cudaError_t launch_rho(int npad, int gpad, const float* dm, const float* aot,
                        const GradPlanes& gp, const float* wt, float* s,
-                       float* u, float* e_part, cudaStream_t stream) {
+                       float* u, float* e_part, float u_scale,
+                       cudaStream_t stream) {
   constexpr int NQ = rho_nq(KIND);
   const int ntile = gpad / kRhoCols;
   size_t smem = rho_res_smem(npad, MODE);
@@ -1777,7 +1787,7 @@ cudaError_t launch_rho(int npad, int gpad, const float* dm, const float* aot,
     const int sms = dev < 64 ? nsm[dev] : 132;
     const int nblk = (ntile + 1) / 2 < sms ? (ntile + 1) / 2 : sms;
     xc_rho_res_kernel<KIND, MODE><<<nblk, kResThreads, smem, stream>>>(
-        npad, gpad, dm, aot, gp, wt, s, u, e_part);
+        npad, gpad, dm, aot, gp, wt, s, u, e_part, u_scale);
     return cudaGetLastError();
   }
   smem = rho_smem(npad, MODE);
@@ -1785,7 +1795,7 @@ cudaError_t launch_rho(int npad, int gpad, const float* dm, const float* aot,
   err = allow_smem((const void*)xc_rho_kernel<KIND, MODE>, smem, done);
   if (err != cudaSuccess) return err;
   xc_rho_kernel<KIND, MODE><<<ntile, 256, smem, stream>>>(
-      npad, gpad, dm, aot, gp, wt, s, u, e_part);
+      npad, gpad, dm, aot, gp, wt, s, u, e_part, u_scale);
   return cudaGetLastError();
 }
 
@@ -1794,12 +1804,13 @@ template <int MODE>
 cudaError_t launch_rho_kind(int kind, int npad, int gpad, const float* dm,
                             const float* aot, const GradPlanes& gp,
                             const float* wt, float* s, float* u,
-                            float* e_part, cudaStream_t stream) {
+                            float* e_part, float u_scale,
+                            cudaStream_t stream) {
   switch (kind) {
-    case 0: return launch_rho<0, MODE>(npad, gpad, dm, aot, gp, wt, s, u, e_part, stream);
-    case 1: return launch_rho<1, MODE>(npad, gpad, dm, aot, gp, wt, s, u, e_part, stream);
-    case 2: return launch_rho<2, MODE>(npad, gpad, dm, aot, gp, wt, s, u, e_part, stream);
-    default: return launch_rho<3, MODE>(npad, gpad, dm, aot, gp, wt, s, u, e_part, stream);
+    case 0: return launch_rho<0, MODE>(npad, gpad, dm, aot, gp, wt, s, u, e_part, u_scale, stream);
+    case 1: return launch_rho<1, MODE>(npad, gpad, dm, aot, gp, wt, s, u, e_part, u_scale, stream);
+    case 2: return launch_rho<2, MODE>(npad, gpad, dm, aot, gp, wt, s, u, e_part, u_scale, stream);
+    default: return launch_rho<3, MODE>(npad, gpad, dm, aot, gp, wt, s, u, e_part, u_scale, stream);
   }
 }
 
@@ -1841,13 +1852,14 @@ extern "C" {
 // null for kinds 0 and 3.  variant: 0 for K1, else the k* bits above (at
 // most one point bit, the ablations for kinds 1 and 2 only); variant 0 is
 // K1base (kinds 1 and 2); K1, K2, K3 without split2, phi3, nophi and nov
-// are fused_xc_tc.
+// are fused_xc_tc.  u_scale: the factor c of w vsigma in B^T (header note;
+// read by the GGA kinds only).
 // Returns the CUDA error code of the launches (0 on success).
 int fused_xc(int kind, int variant, int nao, int npad, int gpad, int chunk,
              const float* dm, const float* aot, const float* gx,
              const float* gy, const float* gz, const float* wt, float* phi_bt,
              float* e_part, float* v_part, float* v_out, float* e_out,
-             void* stream_ptr) {
+             float u_scale, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int point = variant & kPointBits;
   if (nao < 1 || nao > npad || npad % 8 != 0 || gpad % kPack != 0 ||
@@ -1873,10 +1885,10 @@ int fused_xc(int kind, int variant, int nao, int npad, int gpad, int chunk,
   }
   if (err != cudaSuccess) return (int)err;
   switch (kind) {
-    case 0: err = launch_point_var<0>(variant, npad, gpad, aot, gx, gy, gz, wt, phi_bt, e_part, stream); break;
-    case 1: err = launch_point_var<1>(variant, npad, gpad, aot, gx, gy, gz, wt, phi_bt, e_part, stream); break;
-    case 2: err = launch_point_var<2>(variant, npad, gpad, aot, gx, gy, gz, wt, phi_bt, e_part, stream); break;
-    default: err = launch_point_var<3>(variant, npad, gpad, aot, gx, gy, gz, wt, phi_bt, e_part, stream); break;
+    case 0: err = launch_point_var<0>(variant, npad, gpad, aot, gx, gy, gz, wt, phi_bt, e_part, u_scale, stream); break;
+    case 1: err = launch_point_var<1>(variant, npad, gpad, aot, gx, gy, gz, wt, phi_bt, e_part, u_scale, stream); break;
+    case 2: err = launch_point_var<2>(variant, npad, gpad, aot, gx, gy, gz, wt, phi_bt, e_part, u_scale, stream); break;
+    default: err = launch_point_var<3>(variant, npad, gpad, aot, gx, gy, gz, wt, phi_bt, e_part, u_scale, stream); break;
   }
   if (err != cudaSuccess) return (int)err;
   xc_v_partial_kernel<<<dim3(ntile, ntile, nchunk), dim3(16, 16), 0, stream>>>(
@@ -1904,13 +1916,15 @@ int fused_xc(int kind, int variant, int nao, int npad, int gpad, int chunk,
 // wt/s (gpad), e_part (gpad / 64), v_part (ceil(gpad / chunk), ldv, ldv)
 // with ldv = 32 ceil(npad / 32), v_out (nao, nao) and e_out (1) f64; the
 // GGA body also the gradient planes gx/gy/gz (npad, gpad) and u (3, gpad),
-// null for the LDA body.  Returns the CUDA error code (0 on success).
+// null for the LDA body; u_scale the factor c of w vsigma in u (header
+// note; read by the GGA body only).  Returns the CUDA error code (0 on
+// success).
 int fused_xc_tc(int kind, int mode, int nao, int npad, int gpad, int chunk,
                 const double* dm64, float* dm, const float* aot,
                 const float* gx, const float* gy, const float* gz,
                 const float* wt, float* s, float* u, float* e_part,
                 float* v_part, double* v_out, double* e_out,
-                void* stream_ptr) {
+                float u_scale, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const bool gga = kind == 1 || kind == 2;
   const bool nov = mode == (kTf32x3 | kTcNoV);
@@ -1930,18 +1944,18 @@ int fused_xc_tc(int kind, int mode, int nao, int npad, int gpad, int chunk,
     err = cudaGetLastError();
     if (err == cudaSuccess)
       err = launch_rho_kind<kBf16x3>(kind, npad, gpad, dm, aot, gp, wt, s, u,
-                                     e_part, stream);
+                                     e_part, u_scale, stream);
   } else if (mode == kPhiAo) {  // the GGA kinds only (checked above)
     err = kind == 1 ? launch_rho<1, kPhiAo>(npad, gpad, nullptr, aot, gp, wt,
-                                            s, u, e_part, stream)
+                                            s, u, e_part, u_scale, stream)
                     : launch_rho<2, kPhiAo>(npad, gpad, nullptr, aot, gp, wt,
-                                            s, u, e_part, stream);
+                                            s, u, e_part, u_scale, stream);
   } else {
     xc_pad_dm_kernel<<<pad_blocks, 256, 0, stream>>>(nao, npad, dm64, dm);
     err = cudaGetLastError();
     if (err == cudaSuccess)
       err = launch_rho_kind<kTf32x3>(kind, npad, gpad, dm, aot, gp, wt, s, u,
-                                     e_part, stream);
+                                     e_part, u_scale, stream);
   }
   if (err != cudaSuccess) return (int)err;
   const int T = (npad + kVTile - 1) / kVTile;

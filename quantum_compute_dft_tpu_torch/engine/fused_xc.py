@@ -31,8 +31,9 @@ phi3 (K3's GGA body), nophi and nov share, each with a mode word of its own
     K2 and <= 168 for K1, the persistent ``xc_rho_res_kernel``): phi_D on
     the tensor cores for a 64-point tile and every mu, rho (K1: and grad
     rho, against the gradient planes read once) from the accumulators, the
-    functional, s = w vrho (K1: u_k = 2 w vsigma grad_k rho) and the tile's
-    E partial; phi_D never leaves registers;
+    functional, s = w vrho (K1: u_k = 4 w vsigma grad_k rho, so that V_xc
+    = dE_xc/dD; 2 with ``half_sigma=True``, the JAX package's factor) and
+    the tile's E partial; phi_D never leaves registers;
   * V over the 32 x 32 tiles on or above the diagonal, split-K over grid
     chunks: K2's ``xc_lda_v_kernel`` (V = AO diag(s) AO^T, s AO formed at
     fragment load; schedule ``lda_v_tiles``/``lda_v_chunk``), K1's
@@ -90,6 +91,7 @@ from pathlib import Path
 
 import torch
 
+from quantum_compute_dft_tpu_torch.engine.xc_engine import sigma_factor
 from quantum_compute_dft_tpu_torch.xc.functionals import (
     Functional,
     value_and_potentials,
@@ -206,10 +208,10 @@ def _lib():
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused_xc.argtypes = [i, i, i, i, i, i] + [p] * 12
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.fused_xc.argtypes = [i] * 6 + [p] * 11 + [f, p]
         lib.fused_xc.restype = i
-        lib.fused_xc_tc.argtypes = [i] * 6 + [p] * 14
+        lib.fused_xc_tc.argtypes = [i] * 6 + [p] * 13 + [f, p]
         lib.fused_xc_tc.restype = i
         lib.fused_xc_tc_v_chunk.argtypes = [i, i]
         lib.fused_xc_tc_v_chunk.restype = i
@@ -375,10 +377,12 @@ def _full_f32_matmul():
 
 def fused_xc_reference(functional: Functional, dm, aot, wt, grads, n: int,
                        *, phi_split: bool = False, ablate: str = "",
-                       reduce: str = "f32", base: bool = False):
+                       reduce: str = "f32", base: bool = False,
+                       half_sigma: bool = False):
     """Plain f32 PyTorch version of K1/K2 and of each variant (see the
     module note; K1base computes what K1 does) on packed planes -> (E_xc,
-    V_xc) in dm's dtype."""
+    V_xc) in dm's dtype; V_xc is dE_xc/dD, or with half_sigma the JAX
+    package's (xc_engine.sigma_factor)."""
     launch_names(functional, phi_split, ablate, reduce, base)
     npad = aot.shape[0]
     with _full_f32_matmul():
@@ -413,7 +417,7 @@ def fused_xc_reference(functional: Functional, dm, aot, wt, grads, n: int,
         else:
             bt = (wt * vrho) * aot
             if functional.needs_grad:
-                wvs = 2.0 * wt * vsigma
+                wvs = sigma_factor(half_sigma) * wt * vsigma
                 bt = (bt + (wvs * gr[0]) * grads[0] + (wvs * gr[1]) * grads[1]
                       + (wvs * gr[2]) * grads[2])
             v = (aot @ bt.T)[:n, :n].to(dm.dtype)
@@ -477,12 +481,14 @@ def _check_inputs(functional, dm, aot, wt, grads, n):
 
 
 def _launch(functional: Functional, dm, aot, wt, grads, n: int,
-            phi_split: bool, ablate: str, reduce: str, base: bool):
+            phi_split: bool, ablate: str, reduce: str, base: bool,
+            half_sigma: bool = False):
     names = launch_names(functional, phi_split, ablate, reduce, base)
     _check_inputs(functional, dm, aot, wt, grads, n)
     entry, arg = route(functional, phi_split, ablate, reduce, base)
     if entry == "tc":
-        return _launch_tc(functional, dm, aot, wt, grads, n, names[0], arg)
+        return _launch_tc(functional, dm, aot, wt, grads, n, names[0], arg,
+                          half_sigma)
     npad, gpad = aot.shape
     dev = aot.device
     f32 = torch.float32
@@ -502,7 +508,7 @@ def _launch(functional: Functional, dm, aot, wt, grads, n: int,
             functional.kind, arg, n,
             npad, gpad, chunk, _ptr(dm_p), _ptr(aot), _ptr(gx), _ptr(gy),
             _ptr(gz), _ptr(wt), _ptr(phi_bt), _ptr(e_part), _ptr(v_part),
-            _ptr(v_out), _ptr(e_out), _stream())
+            _ptr(v_out), _ptr(e_out), sigma_factor(half_sigma), _stream())
     _check(code, "fused_xc launch")
     for name in names:
         LAUNCHES[name] += 1
@@ -510,7 +516,7 @@ def _launch(functional: Functional, dm, aot, wt, grads, n: int,
 
 
 def _launch_tc(functional: Functional, dm, aot, wt, grads, n: int,
-               name: str, mode: int):
+               name: str, mode: int, half_sigma: bool = False):
     """K1/K2 (mode TF32X3), K3/phi3 (BF16X3), nophi (PHI_AO) and nov
     (TF32X3 | NO_V): the density's f32 copy (or its bf16 hi and lo planes;
     none for nophi), xc_rho(_res)_kernel, xc_gga_v_kernel (GGA body; not
@@ -553,7 +559,8 @@ def _launch_tc(functional: Functional, dm, aot, wt, grads, n: int,
             functional.kind, mode, n, npad, gpad, chunk,
             _ptr(dm64), dm_p,
             _ptr(aot), _ptr(gx), _ptr(gy), _ptr(gz), _ptr(wt), s, u,
-            e_part, v_part, _ptr(v_out), _ptr(e_out), _stream())
+            e_part, v_part, _ptr(v_out), _ptr(e_out),
+            sigma_factor(half_sigma), _stream())
     _check(code, "fused_xc_tc launch")
     LAUNCHES[name] += 1
     return e_out[0].to(dm.dtype), v_out.to(dm.dtype)
@@ -561,27 +568,30 @@ def _launch_tc(functional: Functional, dm, aot, wt, grads, n: int,
 
 def fused_xc(functional: Functional, dm, aot, wt, grads, n: int, *,
              phi_split: bool = False, ablate: str = "", reduce: str = "f32",
-             base: bool = False):
+             base: bool = False, half_sigma: bool = False):
     """XC build from packed planes (pack_inputs) -> (E_xc, V_xc) in dm's
     dtype.  CUDA tensors launch the kernels of the variant (K1/K2 with no
-    keyword); CPU tensors run the plain version."""
+    keyword); CPU tensors run the plain version.  V_xc is dE_xc/dD, or with
+    half_sigma the JAX package's (the GGA body's u_k at 2 w vsigma)."""
     if aot.is_cuda:
         return _launch(functional, dm, aot, wt, grads, n, phi_split, ablate,
-                       reduce, base)
+                       reduce, base, half_sigma)
     return fused_xc_reference(functional, dm, aot, wt, grads, n,
                               phi_split=phi_split, ablate=ablate,
-                              reduce=reduce, base=base)
+                              reduce=reduce, base=base,
+                              half_sigma=half_sigma)
 
 
 def xc_step_fused(functional: Functional, dm, ao, weights, ao_grad=None, *,
                   phi_split: bool = False, ablate: str = "",
-                  reduce: str = "f32"):
+                  reduce: str = "f32", half_sigma: bool = False):
     """Unpacked entry with the xc_step contract (packs on every call; the
     port of xc_step_pallas, whose phi_split it takes)."""
     aot, wt, grads = pack_inputs(ao, weights, ao_grad,
                                  needs_grad=functional.needs_grad)
     return fused_xc(functional, dm, aot, wt, grads, dm.shape[0],
-                    phi_split=phi_split, ablate=ablate, reduce=reduce)
+                    phi_split=phi_split, ablate=ablate, reduce=reduce,
+                    half_sigma=half_sigma)
 
 
 def functional_eval(functional: Functional, rho, sigma=None):

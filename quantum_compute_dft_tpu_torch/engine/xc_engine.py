@@ -7,10 +7,14 @@ Port of ``quantum_compute_dft_tpu/engine/xc_engine.py`` (``_xc_block``,
     grad-rho, sigma for GGAs
     e_g     = rho_g * eps_xc(rho_g, sigma_g)
     E_xc    = sum_g w_g e_g
-    B_gi    = w_g (vrho_g phi_i + 2 vsigma_g grad-rho . grad-phi_i)
+    B_gi    = w_g (vrho_g phi_i + 4 vsigma_g grad-rho . grad-phi_i)
     V_xc    = phi^T B, symmetrized
 
 in float64 torch ops, chunked over the grid so the temporaries stay bounded.
+V_xc is dE_xc/dD: its sigma term is 2 vsigma grad-rho . grad(phi_u phi_v),
+as the reference's CUDA engine forms it (dft_solver.cu:427-430).  The JAX
+package forms B with 2 vsigma, half that term; ``half_sigma=True``
+reproduces its V_xc, for comparisons with it.
 This is the port of XLA code, not of a kernel: its products are
 ``torch.matmul``.  The per-cycle f32 XC build of the 'fast' schedule is
 the hand-written CUDA kernel of engine/fused_xc.py.
@@ -23,7 +27,14 @@ import torch
 from quantum_compute_dft_tpu_torch.xc.functionals import Functional
 
 
-def _xc_block(functional: Functional, dm, aot, wt, grt, want_v: bool = True):
+def sigma_factor(half_sigma: bool = False) -> float:
+    """The factor of w vsigma grad-rho . grad-phi in B: 4 gives V_xc =
+    dE_xc/dD; 2 (half_sigma) the JAX package's V_xc."""
+    return 2.0 if half_sigma else 4.0
+
+
+def _xc_block(functional: Functional, dm, aot, wt, grt, want_v: bool = True,
+              half_sigma: bool = False):
     """(E_xc, V_half) contribution of one grid block -- TRANSPOSED
     (nao, g) layout.  want_v=False skips the B assembly and the V GEMM."""
     phi_d = dm @ aot                               # (nao, g)
@@ -38,7 +49,8 @@ def _xc_block(functional: Functional, dm, aot, wt, grt, want_v: bool = True):
         if not want_v:
             return exc, None
         gdot = torch.einsum("kg,kng->ng", grad_rho, grt)
-        bt = wt[None, :] * (vrho[None, :] * aot + 2.0 * vsigma[None, :] * gdot)
+        bt = wt[None, :] * (vrho[None, :] * aot
+                            + sigma_factor(half_sigma) * vsigma[None, :] * gdot)
     else:
         e, vrho, _ = functional.exc_vxc(rho)
         exc = wt @ e
@@ -49,14 +61,17 @@ def _xc_block(functional: Functional, dm, aot, wt, grt, want_v: bool = True):
 
 
 # grid points per chunk (one chunk up to 2 * _XC_CHUNK points).  The JAX
-# package uses 32768 to fit a 16 GB TPU; at the in-core sizes (nao <= 64)
-# a 262,144-point f64 chunk with gradients is ~0.4 GB, and on the card each
-# chunk costs a few hundred small kernel launches for the functional, so
-# the chunk is larger here.
-_XC_CHUNK = 131072
+# package uses 32768 to fit a 16 GB TPU.  On the card each chunk costs a
+# few hundred small kernel launches for the functional and its derivative,
+# which pace the f64 cycles of a GGA on the host, while a chunk's
+# temporaries are a few (nao, chunk) f64 planes, 0.69 GB each for a
+# 553,156-point grid at nao 155.  So a grid of up to a million points is
+# one chunk here.
+_XC_CHUNK = 524288
 
 
-def _xc_scan(functional: Functional, dm, ao, weights, ao_grad, want_v: bool):
+def _xc_scan(functional: Functional, dm, ao, weights, ao_grad, want_v: bool,
+             half_sigma: bool = False):
     """Shared chunked driver for xc_step / xc_energy: (nao, g) layout,
     fixed-size grid chunks (one chunk up to 2 * _XC_CHUNK points)."""
     g = ao.shape[0]
@@ -69,7 +84,7 @@ def _xc_scan(functional: Functional, dm, ao, weights, ao_grad, want_v: bool):
         e_b, v_b = _xc_block(
             functional, dm, aot[:, s:s + c], weights[s:s + c],
             grt[:, :, s:s + c] if functional.needs_grad else None,
-            want_v=want_v,
+            want_v=want_v, half_sigma=half_sigma,
         )
         exc = exc + e_b
         if want_v:
@@ -83,9 +98,13 @@ def xc_step(
     ao: torch.Tensor,          # (ngrid, nao)
     weights: torch.Tensor,     # (ngrid,)
     ao_grad: torch.Tensor | None = None,   # (3, ngrid, nao) planar layout
+    *,
+    half_sigma: bool = False,
 ):
-    """-> (E_xc 0-dim tensor, V_xc (nao, nao) symmetric), float64."""
-    exc, v_half = _xc_scan(functional, dm, ao, weights, ao_grad, want_v=True)
+    """-> (E_xc 0-dim tensor, V_xc (nao, nao) symmetric), float64; V_xc is
+    dE_xc/dD, or with half_sigma the JAX package's."""
+    exc, v_half = _xc_scan(functional, dm, ao, weights, ao_grad, want_v=True,
+                           half_sigma=half_sigma)
     return exc, 0.5 * (v_half + v_half.T)
 
 

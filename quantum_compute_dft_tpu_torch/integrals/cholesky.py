@@ -11,7 +11,10 @@ element-wise.  Blocked pivot panels: each outer iteration picks the
 `block` largest residual diagonals, evaluates their ERI columns on the
 device with the in-core path's quartet stage (integrals/two_electron.py:
 on the card one K4 launch for the diagonal and one a panel), and downdates
-on the host in exact f64 numpy.  Total integral work is
+it in exact f64 on the same device: one GEMM a panel against the vectors
+so far, then one rank-1 update a column inside the panel.  The host keeps
+the pivot order, from the residual diagonal that crosses to it once a
+panel, and reads each pivot's residual.  Total integral work is
 O(npair * rank) quartets instead of O(npair^2).
 
 The factor unpacks to a (nao, nao, rank) tensor that the density-fitted
@@ -21,6 +24,8 @@ J/K builders (integrals/density_fitting.py) take with an identity metric:
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -52,13 +57,14 @@ def cholesky_eri_vectors(
     """-> L (nao, nao, rank) f64 spherical-AO Cholesky vectors on `device`
     with max residual diagonal < tol (guaranteed elementwise ERI error).
 
-    timings, if given, gets the split between card and host, host seconds
-    at the transfers the factorization waits at anyway: cholesky_card_s
-    (the diagonal and the panels, each to the end of its transfer to the
-    host), cholesky_host_s (the downdates, the in-panel factorizations, the
-    unpack and its upload), cholesky_panels and eri_kernel_launches (the
-    K4 launches of the factorization: the diagonal and one a panel on the
-    card, 0 on the CPU)."""
+    timings, if given, gets the split between the integrals and the
+    factorization, host seconds to a synchronization at the end of each:
+    cholesky_card_s (the diagonal and the panels' ERI columns),
+    cholesky_host_s (the downdates, the in-panel factorizations and the
+    unpack, on the factor's device, paced by the host's pivot loop),
+    cholesky_panels and eri_kernel_launches (the K4 launches of the
+    factorization: the diagonal and one a panel on the card, 0 on the
+    CPU)."""
     card, host = "cholesky_card_s", "cholesky_host_s"
     n = basis.ncart
     lmax = int(basis.cart_powers.max())
@@ -89,62 +95,76 @@ def cholesky_eri_vectors(
 
     if max_rank is None:
         max_rank = min(npair, 16 * basis.nao + 64)
-
-    def run_panel(piv):
-        """ERI columns W[:, piv] for one pivot block -> (npair, k) numpy,
-        crossing to the host in one transfer (one synchronization per
-        panel)."""
-        return eri_columns(pairs, sel, sel[piv], block).cpu().numpy()
-
-    l_cols: list[np.ndarray] = []
+    dev = torch.device(device)
+    f64 = dict(dtype=torch.float64, device=dev)
+    d = torch.as_tensor(d, **f64)
+    # the factor, one row a vector: rows [:rank] are L^T
+    lbuf = torch.zeros((max_rank, npair), **f64)
+    rank = 0
     it = 0
     while True:
-        dmax = d.max() if npair else 0.0
-        if dmax < tol or len(l_cols) >= max_rank:
+        # the residual diagonal crosses to the host once a panel, for the
+        # stop test and the pivot order
+        d_host = d.cpu().numpy()
+        dmax = d_host.max() if npair else 0.0
+        if dmax < tol or rank >= max_rank:
             break
         # pivot block: the `block` largest residual diagonals
-        cand = np.argsort(-d)[:block]
-        piv = cand[d[cand] > tol]
+        cand = np.argsort(-d_host)[:block]
+        piv = cand[d_host[cand] > tol]
         k = len(piv)
+        piv_t = torch.as_tensor(piv, device=dev)
         with span("cholesky.panel", timings, card):
-            panel = run_panel(piv)
-        if l_cols:
+            panel = eri_columns(pairs, sel, sel[piv], block)
+            _sync(dev)
+        if rank:
             with span("cholesky.downdate", timings, host):
-                lmat = np.concatenate(l_cols, axis=1)
-                panel -= lmat @ lmat[piv].T
-        # in-panel pivoted factorization (host, exact f64)
+                lmat = lbuf[:rank]
+                panel -= lmat.T @ lmat[:, piv_t]
+        # in-panel pivoted factorization (exact f64, on the factor's
+        # device; the host reads each pivot's residual, one sync a column)
         with span("cholesky.factor", timings, host):
             for c in range(k):
-                if len(l_cols) >= max_rank:
+                if rank >= max_rank:
                     break
-                djj = panel[piv[c], c]
+                djj = float(panel[piv[c], c])
                 if djj < tol:
                     continue  # downdated below threshold by earlier columns
-                lcol = panel[:, c] / np.sqrt(djj)
-                l_cols.append(lcol[:, None])
+                lcol = panel[:, c] / math.sqrt(djj)
+                lbuf[rank] = lcol
+                rank += 1
                 if c + 1 < k:
-                    panel[:, c + 1:] -= (lcol[:, None]
-                                         * lcol[piv[c + 1:]][None, :])
-                d -= lcol * lcol
-            d = np.maximum(d, 0.0)
+                    panel[:, c + 1:].addr_(lcol, lcol[piv_t[c + 1:]],
+                                           alpha=-1.0)
+                d.addcmul_(lcol, lcol, value=-1.0)
+            d.clamp_(min=0.0)
+            _sync(dev)
         it += 1
         if verbose:
-            print(f"  cholesky panel {it}: rank={len(l_cols)}, "
-                  f"max residual diag={d.max():.3e}")
+            print(f"  cholesky panel {it}: rank={rank}, "
+                  f"max residual diag={float(d.max()):.3e}")
 
     if timings is not None:
         timings["cholesky_panels"] = it
         timings["eri_kernel_launches"] = LAUNCHES["K4"] - launches
     with span("cholesky.unpack", timings, host):
-        rank = len(l_cols)
-        l_pair = (np.concatenate(l_cols, axis=1) if rank
-                  else np.zeros((npair, 0)))
-
         # unpack (pair, rank) -> symmetric (ncart, ncart, rank) -> spherical
-        full = np.zeros((n, n, rank))
-        full[iu, ju] = l_pair
-        full[ju, iu] = l_pair
+        l_pair = lbuf[:rank].T
+        rows = torch.as_tensor(iu, device=dev)
+        cols = torch.as_tensor(ju, device=dev)
+        full = torch.zeros((n, n, rank), **f64)
+        full[rows, cols] = l_pair
+        full[cols, rows] = l_pair
+        del lbuf, l_pair
         c2s = basis.c2s
         if not (c2s.shape[0] == n and np.allclose(c2s, np.eye(n))):
-            full = np.einsum("ip,jq,pqr->ijr", c2s, c2s, full, optimize=True)
-        return torch.as_tensor(full, dtype=torch.float64, device=device)
+            c2s = torch.as_tensor(c2s, **f64)
+            full = torch.einsum("ip,jq,pqr->ijr", c2s, c2s, full)
+        _sync(dev)
+        return full
+
+
+def _sync(dev: torch.device) -> None:
+    """Wait for the card, so a span's host seconds hold its device work."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

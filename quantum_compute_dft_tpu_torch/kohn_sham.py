@@ -46,6 +46,13 @@ from quantum_compute_dft_tpu_torch.xc.functionals import FUNCTIONALS, Functional
 
 # in-core ERIs below/at this nao, density fitting above (see prepare)
 AUTO_DF_NAO = 64
+# the pivoted Cholesky's residual-diagonal threshold (df_aux='parity'):
+# the JAX package's, and a decade tighter for a functional with exact
+# exchange.  The factor's error enters the exchange energy once for every
+# pair of occupied orbitals, and J's once: at 1e-7, B3LYP on riboflavin
+# (nao 155) lands 2.7-3.5e-6 Eh from in-core ERIs, at 1e-8 3.4e-7.
+CD_TOL = 1e-7
+CD_TOL_EXACT_EXCHANGE = 1e-8
 # in-core ERI tensors are cached up to this nao ((nao^4) * 8 B: 330 MB at 80)
 CACHE_ERI_NAO = 80
 
@@ -113,13 +120,17 @@ def prepare(
     df_aux: str = "parity",
     _df_override: tuple | None = None,
     device="cuda",
+    cd_tol: float | None = None,
 ) -> KSSetup:
     """Basis, integrals, grid and AO planes on `device`.
 
     density_fit=None auto-selects: in-core ERIs up to nao AUTO_DF_NAO,
     density fitting above.  df_aux picks the factorization:
-      'parity' (default): pivoted-Cholesky ERI vectors, tol 1e-7
-        (elementwise ERI error <= 1e-7 by construction);
+      'parity' (default): pivoted-Cholesky ERI vectors, tol CD_TOL (1e-7),
+        or CD_TOL_EXACT_EXCHANGE (1e-8) when the functional has exact
+        exchange (elementwise ERI error <= tol by construction); cd_tol
+        replaces that choice, for comparisons with the JAX package, whose
+        factor is CD_TOL's for every functional;
       'tight' / 'fast': the even-tempered RI auxiliary tiers
         (integrals/density_fitting.py): a cheaper build, with errors that
         grow with size (~1e-5 / 1e-4 Eh from the Cholesky energy at DHA,
@@ -130,7 +141,9 @@ def prepare(
     density fitting.
 
     The setup cache (setup_cache.py) serves the one-electron integrals,
-    the Cholesky factor (df_aux='parity'), in-core ERIs up to nao
+    the Cholesky factor (df_aux='parity', one per threshold, stored as its
+    rows over the AO pairs i <= j and unpacked on `device`), in-core ERIs
+    up to nao
     CACHE_ERI_NAO and the grid (when `grid` is not given); an override
     factor and the RI tiers are not cached, as in the JAX package.
     KSSetup.cache_hits names what was loaded, and df_time stays 0 when the
@@ -188,15 +201,26 @@ def prepare(
                 (eri,) = incore()
         elif df_aux == "parity":
             t_df = time.time()
+            tol = cd_tol or (CD_TOL if fn.hyb_coeff == 0.0
+                             else CD_TOL_EXACT_EXCHANGE)
+            iu, ju = (torch.as_tensor(a, device=device)
+                      for a in np.triu_indices(basis.nao))
 
             def factor():
-                nonlocal df_time
-                out = cholesky_eri_vectors(basis, device=device,
-                                           timings=extra)
+                nonlocal df_time, l_vec
+                l_vec = cholesky_eri_vectors(basis, tol=tol, device=device,
+                                             timings=extra)
                 df_time = time.time() - t_df
-                return (out,)
+                return (l_vec[iu, ju],)
 
-            (l_vec,) = cached("cdvec", ck, ("l_vec",), factor)
+            (l_tri,) = cached("cdvec", f"{ck}_tol{tol:g}", ("l_tri",),
+                              factor)
+            if l_vec is None:
+                l_vec = l_tri.new_empty((basis.nao, basis.nao,
+                                         l_tri.shape[1]))
+                l_vec[iu, ju] = l_tri
+                l_vec[ju, iu] = l_tri
+            del l_tri
         elif df_aux in AUX_LEVELS:
             t_df = synced_time(device)
             ri_split = {}

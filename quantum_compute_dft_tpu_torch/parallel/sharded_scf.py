@@ -30,9 +30,11 @@ from quantum_compute_dft_tpu_torch.scf.driver import SCFSystem, _density
 from quantum_compute_dft_tpu_torch.xc.functionals import Functional
 
 
-def make_sharded_scf(shard: Shard, sys: SCFSystem, functional: Functional):
+def make_sharded_scf(shard: Shard, sys: SCFSystem, functional: Functional,
+                     half_sigma: bool = False):
     """-> (step, dm0, diis0); step(dm, diis) -> (dm_new, diis, e_tot) runs
-    one cycle on this rank, in step with the others.
+    one cycle on this rank, in step with the others (half_sigma: the JAX
+    package's V_xc, as xc_step's).
 
     In-core (sys.eri: cut into AO row blocks) or density-fitted (sys.df_bq,
     the aux-major factor: cut along its aux axis).  Only the rank's shards
@@ -65,7 +67,7 @@ def make_sharded_scf(shard: Shard, sys: SCFSystem, functional: Functional):
     else:
         build_jk = sharded_df_builders(shard, sys.df_bq.permute(1, 2, 0),
                                        None, build_k=c_hf != 0.0)
-    xc_fn = sharded_xc_step(shard, functional)
+    xc_fn = sharded_xc_step(shard, functional, half_sigma)
 
     def step(dm, diis):
         j, k = build_jk(dm)

@@ -15,6 +15,11 @@
 //    formula transcription errors.
 //  * One fused pass per grid block: density + functional + V_xc
 //    accumulation without materializing the (ngrid x nao) B matrix.
+//  * V_xc = dE_xc/dD: B = w (vrho phi + 4 vsigma grad-rho . grad-phi)
+//    before the symmetrization, as the reference's gga_fused_kernel
+//    (ref src/dft_solver.cu:427-430).  The JAX package's copy of this file
+//    has 2 vsigma, half the sigma term; DFT_SetSigmaFactor(solver, 2)
+//    reproduces it, for comparisons with that package.
 //  * No cuBLAS/Eigen: small blocked matmuls with OpenMP are plenty for a
 //    host fallback.
 //
@@ -182,6 +187,7 @@ inline Dual2 f_xc(int kind, Dual2 rho, Dual2 sigma) {
 
 struct HostSolver {
   int kind;
+  double sigma_factor;  // of w vsigma grad-rho . grad-phi in B
 };
 
 }  // namespace
@@ -190,7 +196,13 @@ extern "C" {
 
 HostSolver* DFT_CreateSolver(int type) {
   if (type < 0 || type > 2) return nullptr;
-  return new HostSolver{type};
+  return new HostSolver{type, 4.0};
+}
+
+// The factor of w vsigma grad-rho . grad-phi in B: 4 (the default) gives
+// V_xc = dE_xc/dD, 2 the JAX package's V_xc.
+void DFT_SetSigmaFactor(HostSolver* s, double factor) {
+  if (s) s->sigma_factor = factor;
 }
 
 void DFT_DestroySolver(HostSolver* s) { delete s; }
@@ -264,14 +276,14 @@ double DFT_ComputeXC(HostSolver* solver, int ngrid, int nao,
       exc += wg * f.v;
       double vrho = f.dr, vsig = f.ds;
 
-      // accumulate V += phi (w vrho phi + 2 w vsig gdot)^T symmetric half
+      // accumulate V += phi (w vrho phi + c w vsig gdot)^T symmetric half
       if (needs_grad) {
         const double* gxr = gx + (size_t)g * nao;
         const double* gyr = gy + (size_t)g * nao;
         const double* gzr = gz + (size_t)g * nao;
         for (int i = 0; i < nao; ++i) {
           double gdot = grx * gxr[i] + gry * gyr[i] + grz * gzr[i];
-          b_row[i] = wg * (vrho * phi[i] + 2.0 * vsig * gdot);
+          b_row[i] = wg * (vrho * phi[i] + solver->sigma_factor * vsig * gdot);
         }
       } else {
         for (int i = 0; i < nao; ++i) b_row[i] = wg * vrho * phi[i];

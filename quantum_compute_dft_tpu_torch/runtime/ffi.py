@@ -3,10 +3,12 @@
 Port of ``quantum_compute_dft_tpu/runtime/ffi.py``, which mirrors the
 reference's ``DFTSolverWrapper`` (ref dft.py:15-95): the same C ABI, the
 same argtypes, pointers marshalled as uint64, over host numpy arrays.
-dft_host.cpp is the JAX package's file, byte for byte; the library is
-built from this package's copy with g++ on first use, into the repository's
-build/ directory (never into the package), under a name carrying the
-source hash.
+dft_host.cpp is the JAX package's file but for its V_xc, which is
+dE_xc/dD (the JAX package's has half the sigma term, which
+``half_sigma=True`` reproduces through ``DFT_SetSigmaFactor``); the library
+is built from this package's copy with g++ on first use, into the
+repository's build/ directory (never into the package), under a name
+carrying the source hash.
 """
 
 from __future__ import annotations
@@ -58,7 +60,7 @@ class HostSolverWrapper:
     TYPE_B3LYP = 2
 
     def __init__(self, functional_type: str = "LDA",
-                 lib_path: str | None = None):
+                 lib_path: str | None = None, half_sigma: bool = False):
         lib_path = lib_path or build_library()
         self.lib = ctypes.CDLL(os.path.abspath(lib_path))
         self.lib.DFT_CreateSolver.argtypes = [ctypes.c_int]
@@ -76,12 +78,17 @@ class HostSolverWrapper:
             ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint64,
         ]
         self.lib.DFT_ComputeCoulomb.restype = None
+        self.lib.DFT_SetSigmaFactor.argtypes = [ctypes.c_void_p,
+                                                ctypes.c_double]
+        self.lib.DFT_SetSigmaFactor.restype = None
 
         kind = {"LDA": 0, "GGA": 1, "PBE": 1,
                 "B3LYP": 2}[functional_type.upper()]
         self.solver = self.lib.DFT_CreateSolver(kind)
         if not self.solver:
             raise RuntimeError("failed to create native host solver")
+        # the factor of w vsigma grad-rho . grad-phi in B (dft_host.cpp)
+        self.lib.DFT_SetSigmaFactor(self.solver, 2.0 if half_sigma else 4.0)
 
     def __del__(self):
         if getattr(self, "solver", None):

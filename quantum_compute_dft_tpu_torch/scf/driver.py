@@ -100,6 +100,12 @@ FAST_DN_STREAK = 8
 ADIIS_TO_CDIIS = 1e-2   # mixer='adiis+cdiis': ADIIS -> CDIIS handover
 MIX_TO_CDIIS = 3e-3     # mixer='mix+cdiis': damped mixing -> CDIIS handover
 
+# exact-exchange K builds, counted where they run (_build_k): "fast", the
+# f32 aux-major K of the 'fast' schedule's density-fitted kernel phase;
+# "f64", every other (in-core, the density-fitted f64 K, energy_of_dm's).
+# scf_host reports its own call's counts on SCFResult.
+K_BUILDS = {"fast": 0, "f64": 0}
+
 
 def _level_shift(f, dm, s, shift: float):
     """F + shift * S (I - 1/2 D S): moves virtuals up by `shift` Eh,
@@ -347,11 +353,13 @@ def _packed_for(sys: SCFSystem, needs_grad: bool):
     return ent
 
 
-def _fused_xc(sys: SCFSystem, functional: Functional, dm):
+def _fused_xc(sys: SCFSystem, functional: Functional, dm,
+              half_sigma: bool = False):
     from quantum_compute_dft_tpu_torch.engine.fused_xc import fused_xc
 
     aot, wt, grads = _packed_for(sys, functional.needs_grad)
-    return fused_xc(functional, dm, aot, wt, grads, sys.hcore.shape[0])
+    return fused_xc(functional, dm, aot, wt, grads, sys.hcore.shape[0],
+                    half_sigma=half_sigma)
 
 
 def _build_j(sys: SCFSystem, dm):
@@ -364,6 +372,8 @@ def _build_j(sys: SCFSystem, dm):
 def _build_k(sys: SCFSystem, dm, fast: bool = False):
     """K: in-core f64; density-fitted, the f32 aux-major K when `fast`
     (kernel-phase cycles) and the f64 K otherwise."""
+    fast = fast and sys.eri is None
+    K_BUILDS["fast" if fast else "f64"] += 1
     if sys.eri is not None:
         return exchange_full(sys.eri, dm)
     if fast:
@@ -414,13 +424,15 @@ def _cycle_tail(sys: SCFSystem, functional: Functional, dm, diis, e_xc,
 
 def scf_iteration(sys: SCFSystem, functional: Functional, dm, diis,
                   shift: float = 0.0, smear_kt: float = 0.0,
-                  mixer: str = "cdiis", mix_alpha: float = 0.2):
+                  mixer: str = "cdiis", mix_alpha: float = 0.2,
+                  half_sigma: bool = False):
     """One f64 SCF cycle -> (dm_new, diis, energies [5], dnorm).
     mixer='mix' is damped linear mixing, D + alpha (D_new - D); dnorm is
-    then the blended step, as in the JAX package's scf_host."""
+    then the blended step, as in the JAX package's scf_host.  half_sigma:
+    the JAX package's V_xc (xc_step)."""
     with span("scf.xc"):
         e_xc, vxc = xc_step(functional, dm, sys.ao, sys.weights,
-                            sys.ao_grad)
+                            sys.ao_grad, half_sigma=half_sigma)
     dm_new, diis, energies = _cycle_tail(sys, functional, dm, diis, e_xc,
                                          vxc, shift, smear_kt, mixer)
     if mixer == "mix":
@@ -431,15 +443,16 @@ def scf_iteration(sys: SCFSystem, functional: Functional, dm, diis,
 def scf_iteration_fast(sys: SCFSystem, functional: Functional, dm, diis,
                        shift: float = 0.0, smear_kt: float = 0.0,
                        mixer: str = "cdiis", mix_alpha: float = 0.2,
-                       fast_k: bool = True):
+                       fast_k: bool = True, half_sigma: bool = False):
     """One kernel-phase cycle of the 'fast' and 'pallas' schedules: f32 XC
     from the fused kernel, then the tail (the f32 K when density-fitted
     and fast_k, the 'fast' schedule's; f64 K otherwise), with the density
     sanity guard (scf_host_staged's cycle).  -> (dm_new, diis, energies
     [5], dnorm).  Under mixer='mix' dnorm stays the raw map residual, as in
-    the JAX package's staged tail."""
+    the JAX package's staged tail.  half_sigma: the JAX package's V_xc
+    (fused_xc)."""
     with span("scf.xc"):
-        e_xc, vxc = _fused_xc(sys, functional, dm)
+        e_xc, vxc = _fused_xc(sys, functional, dm, half_sigma)
     dm_new, diis, energies = _cycle_tail(sys, functional, dm, diis, e_xc,
                                          vxc, shift, smear_kt, mixer,
                                          fast_k=fast_k)
@@ -483,6 +496,11 @@ class SCFResult:
     # kernel, and the f64 verify cycles after them ('fast' only)
     fast_cycles: int = 0
     verify_cycles: int = 0
+    # exact-exchange K builds of the call (K_BUILDS), energy_of_dm's
+    # included: the f32 aux-major K ('fast', density-fitted kernel phase)
+    # and the f64 K; 0 and 0 for a functional without exact exchange
+    k_builds_fast: int = 0
+    k_builds_f64: int = 0
     # electronic temperature this result was converged at (0 = integer
     # occupations); scf_host_annealed reports its coldest converged rung
     smear_kt: float = 0.0
@@ -503,6 +521,7 @@ def scf_host(
     mix_alpha: float = 0.2,
     checkpoint_cb: Callable | None = None,
     checkpoint_every: int = 25,
+    half_sigma: bool = False,
 ) -> SCFResult:
     """Host SCF loop; callback(cycle, eb, dE, dnorm) after each cycle.
 
@@ -540,7 +559,11 @@ def scf_host(
     calls it: with the density carried into the next cycle and the energy
     that the cycle reported, whose J, K and XC come from the cycle's input
     density, so the stored e_tot is one cycle older than dm, as in the JAX
-    loop (resume reads only dm)."""
+    loop (resume reads only dm).
+
+    half_sigma: every cycle's V_xc is the JAX package's, half the sigma
+    term of dE_xc/dD (xc_step, fused_xc), for comparisons with its GGA
+    numbers; never a CLI option."""
     if xc_impl not in ("f64", "fast", "pallas"):
         raise ValueError(f"xc_impl must be 'f64', 'fast' or 'pallas', not "
                          f"{xc_impl!r}")
@@ -555,13 +578,16 @@ def scf_host(
     dnorm_prev = float("inf")
     kernel_phase = xc_impl != "f64"   # 'fast': then f64 verify cycles
     kernel_step = functools.partial(scf_iteration_fast,
-                                    fast_k=xc_impl == "fast")
+                                    fast_k=xc_impl == "fast",
+                                    half_sigma=half_sigma)
+    f64_step = functools.partial(scf_iteration, half_sigma=half_sigma)
+    k0 = dict(K_BUILDS)
     dn_streak = 0
     n_fast = 0
     done = None    # the converged cycle and its density
     for cycle in range(max_cycle):
         with span("scf.cycle"):
-            step = kernel_step if kernel_phase else scf_iteration
+            step = kernel_step if kernel_phase else f64_step
             dm_new, diis, en, dn_t = step(
                 sys, functional, dm, diis,
                 shift=0.0 if (use_adiis or use_mix) else shiftc.shift,
@@ -618,14 +644,20 @@ def scf_host(
                          shift_engaged_at=shiftc.engaged_at,
                          fast_cycles=n_fast,
                          verify_cycles=cycle + 1 - n_fast,
-                         smear_kt=smear_kt)
+                         smear_kt=smear_kt, **_k_builds_since(k0))
     eb = (energy_of_dm(sys, functional, dm) if max_cycle > 0
           else EnergyBreakdown(*(float("nan"),) * 5))
     return SCFResult(False, max_cycle, dm, eb, eb.e_tot,
                      level_shift=shiftc.shift,
                      shift_engaged_at=shiftc.engaged_at,
                      fast_cycles=n_fast, verify_cycles=max_cycle - n_fast,
-                     smear_kt=smear_kt)
+                     smear_kt=smear_kt, **_k_builds_since(k0))
+
+
+def _k_builds_since(k0: dict) -> dict:
+    """SCFResult's K build counts since the snapshot k0 of K_BUILDS."""
+    return dict(k_builds_fast=K_BUILDS["fast"] - k0["fast"],
+                k_builds_f64=K_BUILDS["f64"] - k0["f64"])
 
 
 ANNEAL_KTS = (0.5, 0.35, 0.25, 0.2, 0.15, 0.1)
@@ -701,7 +733,7 @@ def _jit_carry(sys: SCFSystem) -> dict:
 
 
 def _jit_cycle(sys: SCFSystem, functional: Functional, st: dict,
-               max_cycle: int):
+               max_cycle: int, half_sigma: bool = False):
     """One cycle of scf_jit on the carry `st`, written back in place and
     masked: once done, or at max_cycle, it leaves `st` as it is.  The body
     of the JAX loop: an f64 scf_iteration with CDIIS (no level shift, ADIIS
@@ -712,7 +744,8 @@ def _jit_cycle(sys: SCFSystem, functional: Functional, st: dict,
     back its (eigenvalues, eigenvectors)."""
     dm = st["dm"]
     active = ~st["done"] & (st["cycle"] < max_cycle)
-    e_xc, vxc = xc_step(functional, dm, sys.ao, sys.weights, sys.ao_grad)
+    e_xc, vxc = xc_step(functional, dm, sys.ao, sys.weights, sys.ao_grad,
+                        half_sigma=half_sigma)
     j = _build_j(sys, dm)
     c_hf = functional.hyb_coeff
     k = None
@@ -749,7 +782,8 @@ def _run_cycle(gen) -> None:
 
 
 def _capture_cycle(sys: SCFSystem, functional: Functional, st: dict,
-                   max_cycle: int) -> Callable[[], None]:
+                   max_cycle: int,
+                   half_sigma: bool = False) -> Callable[[], None]:
     """One _jit_cycle on `st` captured as CUDA graphs -> replay().
 
     torch.linalg.eigh checks its result's info flag on the host, a sync
@@ -763,9 +797,9 @@ def _capture_cycle(sys: SCFSystem, functional: Functional, st: dict,
     with torch.cuda.stream(side):
         _run_cycle(_jit_cycle(sys, functional,
                               {k: v.clone() for k, v in st.items()},
-                              max_cycle))
+                              max_cycle, half_sigma))
     torch.cuda.current_stream().wait_stream(side)
-    gen = _jit_cycle(sys, functional, st, max_cycle)
+    gen = _jit_cycle(sys, functional, st, max_cycle, half_sigma)
     graphs, mats, outs = [], [], []
     send = None
     while True:
@@ -796,7 +830,7 @@ def _capture_cycle(sys: SCFSystem, functional: Functional, st: dict,
 
 
 def scf_jit(sys: SCFSystem, functional: Functional,
-            max_cycle: int = MAX_CYCLE):
+            max_cycle: int = MAX_CYCLE, half_sigma: bool = False):
     """The whole f64 SCF as one on-device loop (the JAX package's scf_jit,
     a lax.while_loop): -> (dm, EnergyBreakdown, n_iter, done).
 
@@ -806,18 +840,20 @@ def scf_jit(sys: SCFSystem, functional: Functional,
     cycle) once per block; the replays after convergence change nothing,
     so n_iter is the while-loop's.  A failed capture raises: there is no
     eager route on the card.  On the CPU the same cycle runs eagerly, one
-    per host check."""
+    per host check.  half_sigma: the JAX package's V_xc (xc_step)."""
     st = _jit_carry(sys)
     if sys.device.type == "cuda":
         try:
-            cycle = _capture_cycle(sys, functional, st, max_cycle)
+            cycle = _capture_cycle(sys, functional, st, max_cycle,
+                                   half_sigma)
         except Exception as e:
             raise RuntimeError(f"scf_jit: CUDA graph capture failed ({e})"
                                ) from e
         block = JIT_BLOCK
     else:
         def cycle():
-            _run_cycle(_jit_cycle(sys, functional, st, max_cycle))
+            _run_cycle(_jit_cycle(sys, functional, st, max_cycle,
+                                  half_sigma))
         block = 1
     while True:
         for _ in range(block):

@@ -9,8 +9,10 @@ loads them instead of rebuilding them.
 
 Keyed, as in the JAX package, by a sha256 over the exact float64 geometry
 bytes, the charges and the five basis tables (so edited basis data
-invalidates).  Arrays are stored as host numpy (.npz) and loaded onto the
-caller's device.  Each load and store is a span (utils/profiling.py),
+invalidates).  Arrays are stored as host numpy, one file per (kind, key)
+holding the names and then each array in .npy format (read straight into
+memory, where an .npz's zip layer copies and checksums every byte), and
+loaded onto the caller's device.  Each load and store is a span (utils/profiling.py),
 ``cache.load`` / ``cache.store``, whose seconds a caller may total in a
 dict of its own (``into``).  Disable with DFT_SETUP_CACHE=0; the directory is
 DFT_SETUP_CACHE_DIR, by default <repo>/.cache/setup_torch -- apart from the
@@ -23,7 +25,6 @@ from __future__ import annotations
 import hashlib
 import os
 import tempfile
-import zipfile
 
 import numpy as np
 
@@ -63,13 +64,15 @@ def load(kind: str, key: str, names: tuple[str, ...],
         d = _cache_dir()
         if d is None:
             return None
-        path = os.path.join(d, f"{kind}_{key}.npz")
+        path = os.path.join(d, f"{kind}_{key}.npy")
         if not os.path.exists(path):
             return None
         try:
-            with np.load(path) as z:
-                return tuple(z[n] for n in names)
-        except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
+            with open(path, "rb") as f:
+                stored = [str(n) for n in np.load(f)]
+                got = {n: np.load(f) for n in stored}
+            return tuple(got[n] for n in names)
+        except (OSError, ValueError, KeyError, EOFError):
             return None
 
 
@@ -84,11 +87,13 @@ def store(kind: str, key: str, into: dict | None = None, **arrays) -> None:
             return
         arrays = {n: a.cpu().numpy() if hasattr(a, "cpu") else a
                   for n, a in arrays.items()}
-        path = os.path.join(d, f"{kind}_{key}.npz")
-        fd, tmp = tempfile.mkstemp(suffix=".npz", dir=d)
-        os.close(fd)
+        path = os.path.join(d, f"{kind}_{key}.npy")
+        fd, tmp = tempfile.mkstemp(suffix=".npy", dir=d)
         try:
-            np.savez(tmp, **arrays)
+            with os.fdopen(fd, "wb") as f:
+                np.save(f, np.array(list(arrays)))
+                for a in arrays.values():
+                    np.save(f, np.ascontiguousarray(a))
             os.replace(tmp, path)
         except OSError:   # a full or read-only disk costs the cache
             if os.path.exists(tmp):

@@ -83,11 +83,13 @@ def test_reference_matches_pallas_and_f64(interpret, name):
                                    setup.sys.ao_grad, tile=512)
     fn = FUNCTIONALS[name]
     dm_t, ao_t, w_t, g_t = _torch(dm, ao, w, grad)
-    e, v = fused_xc.xc_step_fused(fn, dm_t, ao_t, w_t, g_t)
+    # the Pallas kernel's V_xc has half the sigma term (half_sigma)
+    e, v = fused_xc.xc_step_fused(fn, dm_t, ao_t, w_t, g_t, half_sigma=True)
     assert e.dtype == v.dtype == torch.float64
     e_px = float(e_px)
     assert abs(float(e) - e_px) < 2e-5 * abs(e_px)
     assert np.abs(v.numpy() - np.asarray(v_px)).max() < 2e-5
+    e, v = fused_xc.xc_step_fused(fn, dm_t, ao_t, w_t, g_t)
     e64, v64 = xc_step(fn, dm_t, ao_t, w_t, g_t)
     assert abs(float(e) - float(e64)) < 5e-5 * abs(float(e64))
     assert float(torch.abs(v - v64).max()) < 5e-5
@@ -121,10 +123,11 @@ def test_reference_matches_pallas_above_npad_64(interpret, decane_planes,
         jnp.asarray(w), None if grad is None else jnp.asarray(grad),
         tile=512)
     dm_t, ao_t, w_t, g_t = _torch(dm, ao, w, grad)
-    e, v = fused_xc.xc_step_fused(fn, dm_t, ao_t, w_t, g_t)
+    e, v = fused_xc.xc_step_fused(fn, dm_t, ao_t, w_t, g_t, half_sigma=True)
     e_px = float(e_px)
     assert abs(float(e) - e_px) < 2e-5 * abs(e_px)
     assert np.abs(v.numpy() - np.asarray(v_px)).max() < 2e-5
+    e, v = fused_xc.xc_step_fused(fn, dm_t, ao_t, w_t, g_t)
     e64, v64 = xc_step(fn, dm_t, ao_t, w_t, g_t)
     assert abs(float(e) - float(e64)) < 5e-5 * abs(float(e64))
     assert float(torch.abs(v - v64).max()) < 5e-5

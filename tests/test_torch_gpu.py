@@ -99,6 +99,38 @@ def test_cuda_kernel_matches_plain_version(name):
     _check_kernel(fn, dm, aot, wt, grads, n)
 
 
+@pytest.mark.parametrize("variant", [{}, {"base": True}, {"phi_split": True}],
+                         ids=["K1", "K1base", "K3"])
+@pytest.mark.parametrize("name", ["GGA", "B3LYP"])
+def test_cuda_gga_body_half_sigma_matches_plain_version(name, variant):
+    """The factor of w vsigma reaches both C entries (fused_xc_tc and the
+    four-kernel pipeline): with half_sigma the GGA body gives its plain
+    version's V_xc with half the sigma term (the JAX package's), the same
+    E bit for bit, and a V_xc that the factor moves."""
+    dev = _cuda()
+    setup = kohn_sham.prepare(
+        from_xyz_file(os.path.join(ROOT, "molecules", "H2O.xyz")), name,
+        grid_level=1, device=dev)
+    s, fn = setup.sys, setup.functional
+    n = setup.nao
+    pert = np.random.default_rng(13).standard_normal((n, n)) * 1e-2
+    dm = initial_guess(s) + torch.tensor(pert + pert.T, device=dev)
+    aot, wt, grads = fused_xc.pack_inputs(s.ao, s.weights, s.ao_grad,
+                                          needs_grad=True)
+    e_k, v_k = fused_xc.fused_xc(fn, dm, aot, wt, grads, n, half_sigma=True,
+                                 **variant)
+    torch.cuda.synchronize()
+    e_p, v_p = fused_xc.fused_xc_reference(fn, dm, aot, wt, grads, n,
+                                           half_sigma=True, **variant)
+    e_d, v_d = fused_xc.fused_xc(fn, dm, aot, wt, grads, n, **variant)
+    torch.cuda.synchronize()
+    tol_v = 5e-5 if variant.get("phi_split") else 1e-5
+    assert abs(float(e_k) - float(e_p)) <= 1e-5 * max(abs(float(e_p)), 1.0)
+    assert float(torch.abs(v_k - v_p).max()) < tol_v
+    assert torch.equal(e_k, e_d)
+    assert float(torch.abs(v_k - v_d).max()) > 100 * tol_v
+
+
 @pytest.mark.parametrize("molecule,npad", [("Decane", 72), ("DHA", 152)])
 @pytest.mark.parametrize("name", ["LDA", "B3LYP"])
 def test_cuda_kernel_above_npad_64(molecule, npad, name):

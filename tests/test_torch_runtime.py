@@ -12,7 +12,7 @@ and the JAX package's run_native_scf on the same arrays, 1e-12 Eh (the same
 loop over the same library).
 """
 
-import filecmp
+import difflib
 import os
 import shutil
 import subprocess
@@ -67,11 +67,28 @@ def _native_args(setup):
 
 
 def test_source_is_the_jax_packages():
+    """The port's dft_host.cpp is the JAX package's but for the sigma term
+    of V_xc: the only lines of the JAX package's copy that the port's
+    changes are those that formed B with 2 vsigma (the port's solver
+    carries the factor, 4 for dE_xc/dD, 2 through DFT_SetSigmaFactor); the
+    rest is the same, line for line."""
     src = os.path.join(ROOT, "quantum_compute_dft_tpu_torch", "runtime",
                        "dft_host.cpp")
     ref = os.path.join(ROOT, "quantum_compute_dft_tpu", "runtime",
                        "dft_host.cpp")
-    assert filecmp.cmp(src, ref, shallow=False)
+    with open(src) as f:
+        port = f.read().splitlines()
+    with open(ref) as f:
+        jax = f.read().splitlines()
+    ops = difflib.SequenceMatcher(None, jax, port,
+                                  autojunk=False).get_opcodes()
+    changed = [line for tag, i1, i2, _, _ in ops if tag != "equal"
+               for line in jax[i1:i2]]
+    assert changed == [
+        "  return new HostSolver{type};",
+        "      // accumulate V += phi (w vrho phi + 2 w vsig gdot)^T "
+        "symmetric half",
+        "          b_row[i] = wg * (vrho * phi[i] + 2.0 * vsig * gdot);"]
 
 
 def test_library_builds_into_build_dir(lib):

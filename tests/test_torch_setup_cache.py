@@ -4,7 +4,7 @@ the off switch and a corrupt file.  Every test points DFT_SETUP_CACHE_DIR
 at its own tmp_path.
 
 Tolerances: keys equal (the same sha256 over the same bytes); the arrays of
-a warm prepare equal the cold one's exactly (.npz stores the float64 bytes),
+a warm prepare equal the cold one's exactly (.npy stores the float64 bytes),
 and so the SCF energies, checked at 1e-12 Eh.
 """
 
@@ -82,7 +82,7 @@ def test_grid_key_carries_level_and_pruning(cache_dir):
     other = kohn_sham.prepare(mol, "LDA", grid_level=1, prune=False,
                               device="cpu")
     assert "grid" not in other.cache_hits and "int1e" in other.cache_hits
-    assert len(list(cache_dir.glob("grid_*_L1_p*.npz"))) == 2
+    assert len(list(cache_dir.glob("grid_*_L1_p*.npy"))) == 2
 
 
 def test_off_switch_writes_nothing(cache_dir, monkeypatch):
@@ -97,17 +97,19 @@ def test_off_switch_writes_nothing(cache_dir, monkeypatch):
 def test_corrupt_file_is_a_miss(cache_dir):
     mol = from_xyz_file(_xyz("H2O"))
     cold = kohn_sham.prepare(mol, "LDA", grid_level=1, device="cpu")
-    (path,) = cache_dir.glob("int1e_*.npz")
-    path.write_bytes(b"not an npz file")
+    (path,) = cache_dir.glob("int1e_*.npy")
+    path.write_bytes(b"not an npy file")
     warm = kohn_sham.prepare(mol, "LDA", grid_level=1, device="cpu")
     assert "int1e" not in warm.cache_hits and "grid" in warm.cache_hits
     assert torch.equal(warm.sys.hcore, cold.sys.hcore)
-    assert np.load(path)["s"].shape == (7, 7)   # rewritten by the miss
+    key = path.stem.split("_", 1)[1]
+    (s,) = setup_cache.load("int1e", key, ("s",))   # rewritten by the miss
+    assert s.shape == (7, 7)
 
 
 def test_store_leaves_no_partial_files(cache_dir):
     setup_cache.store("int1e", "k", s=np.eye(2))
-    assert [p.name for p in cache_dir.iterdir()] == ["int1e_k.npz"]
+    assert [p.name for p in cache_dir.iterdir()] == ["int1e_k.npy"]
     (got,) = setup_cache.load("int1e", "k", ("s",))
     assert np.array_equal(got, np.eye(2))
     assert setup_cache.load("int1e", "missing", ("s",)) is None

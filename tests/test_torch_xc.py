@@ -74,7 +74,9 @@ def test_xc_step_matches_jax(name):
         return None if a is None else torch.tensor(np.asarray(a))
 
     fn = FUNCTIONALS[name]
-    e, v = xc_step(fn, t(dm), t(s.ao), t(s.weights), t(s.ao_grad))
+    # the JAX package's V_xc has half the sigma term (half_sigma)
+    e, v = xc_step(fn, t(dm), t(s.ao), t(s.weights), t(s.ao_grad),
+                   half_sigma=True)
     e2 = xc_energy(fn, t(dm), t(s.ao), t(s.weights), t(s.ao_grad))
     assert abs(float(e) - float(e_ref)) < 1e-10
     assert abs(float(e2) - float(e_ref2)) < 1e-10

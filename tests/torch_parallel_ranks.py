@@ -46,6 +46,10 @@ def builders_and_steps(shard, incore: dict, dfsys: dict, ri: dict,
     for name, grad in (("B3LYP", g), ("LDA", None)):
         e, v = sharded_xc_step(shard, FUNCTIONALS[name])(dm, ao, w, grad)
         out[f"xc_{name}"] = (float(e), _np(v))
+        # the JAX package's V_xc, for the comparison with its sharded XC
+        e, v = sharded_xc_step(shard, FUNCTIONALS[name], half_sigma=True)(
+            dm, ao, w, grad)
+        out[f"xc_{name}_half"] = (float(e), _np(v))
     j_fn, k_fn = sharded_fock_builders(shard)
     eri_loc = local_block(shard, incore["eri"], 0)
     out["jk_incore"] = (_np(j_fn(eri_loc, dm)), _np(k_fn(eri_loc, dm)))

@@ -60,10 +60,13 @@ def _runners(key: str, table: dict, with_jax_setup: bool = False):
     js = jax_kohn_sham.prepare(jax_from_xyz(path), fn,
                                grid_level=row["grid_level"])
     ps = kohn_sham.prepare(from_xyz_file(path), fn,
-                           grid_level=row["grid_level"], device="cpu")
+                           grid_level=row["grid_level"], device="cpu",
+                           cd_tol=kohn_sham.CD_TOL)
     runners = {
         "jax": lambda **kw: jax_scf_host(js.sys, js.functional, **kw),
-        "port": lambda **kw: scf_host(ps.sys, ps.functional, **kw)}
+        # the JAX package's GGA potential (half_sigma), as the table's
+        "port": lambda **kw: scf_host(ps.sys, ps.functional, half_sigma=True,
+                                      **kw)}
     if with_jax_setup:
         runners["jax_setup"] = js
     return row, runners

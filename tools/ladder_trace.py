@@ -55,7 +55,9 @@ def trace(key: str, tol: float = 1e-9) -> dict:
         device="cpu")
     runners = {
         "jax": lambda **kw: jax_scf_host(js.sys, js.functional, **kw),
-        "port": lambda **kw: scf_host(ps.sys, ps.functional, **kw)}
+        # the JAX package's GGA potential (half_sigma), as its loop's
+        "port": lambda **kw: scf_host(ps.sys, ps.functional, half_sigma=True,
+                                      **kw)}
 
     rungs = {name: [] for name in runners}
     energies = {name: [] for name in runners}   # per rung: [e per cycle]

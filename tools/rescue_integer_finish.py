@@ -56,14 +56,18 @@ def _runners():
     js = jax_kohn_sham.prepare(jax_from_xyz(path), "B3LYP",
                                grid_level=GRID_LEVEL)
     ps = kohn_sham.prepare(from_xyz_file(path), "B3LYP",
-                           grid_level=GRID_LEVEL, device="cpu")
+                           grid_level=GRID_LEVEL, device="cpu",
+                           cd_tol=kohn_sham.CD_TOL)
 
     def jax_run(dm0, **kw):
         r = jax_scf_host(js.sys, js.functional, dm0=dm0, **kw)
         return bool(r.converged), r.n_iter, float(r.e_tot), np.asarray(r.dm)
 
     def port_run(dm0, **kw):
-        r = scf_host(ps.sys, ps.functional, dm0=torch.as_tensor(dm0), **kw)
+        # with the JAX package's GGA potential (half_sigma), so that the
+        # two packages run the same SCF
+        r = scf_host(ps.sys, ps.functional, dm0=torch.as_tensor(dm0),
+                     half_sigma=True, **kw)
         return bool(r.converged), r.n_iter, float(r.e_tot), r.dm.numpy()
 
     return {"jax": jax_run, "port": port_run}, (js.nao, js.ngrid)

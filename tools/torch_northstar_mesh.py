@@ -67,6 +67,10 @@ E_TOL, D_TOL = 1e-8, 1e-6           # the reference's convergence rule
 MAX_CYCLES = 200
 NORTHSTAR_TOL = 1e-6                # against ns.JAX_E
 BUILDERS_TOL = 1e-11                # tests/test_parallel.py's bar
+# the JAX package's GGA potential (half the sigma term of dE_xc/dD): the
+# loops' energies are held to its records (the north star's, chip_smoke.py's
+# DHA), so the sharded step, scf_iteration and scf_host all take it
+JAX_PARITY = dict(half_sigma=True)
 
 
 def _setup(shard, cfg):
@@ -191,7 +195,8 @@ def mesh_run(shard, cfg) -> dict:
     if "builders" in modes:
         _builders(shard, ks, rec)
     t0 = synced_time(dev)
-    step, dm0, diis0 = make_sharded_scf(shard, ks.sys, ks.functional)
+    step, dm0, diis0 = make_sharded_scf(shard, ks.sys, ks.functional,
+                                        **JAX_PARITY)
     split["shard_s"] = synced_time(dev) - t0
     if shard.rank == 0:
         rec.update(nao=ks.nao, ngrid=ks.ngrid,
@@ -215,7 +220,8 @@ def mesh_run(shard, cfg) -> dict:
             if shard.rank == 0:
                 t0 = synced_time(dev)
                 dm_s, diis_s, en, _ = scf_iteration(ks.sys, ks.functional,
-                                                    dm_s, diis_s)
+                                                    dm_s, diis_s,
+                                                    **JAX_PARITY)
                 row.update(e_single=float(en[0]),
                            s_single=synced_time(dev) - t0,
                            dE=e - float(en[0]),
@@ -237,7 +243,7 @@ def mesh_run(shard, cfg) -> dict:
         if shard.rank == 0 and cfg["reference"]:
             t0 = synced_time(dev)
             r = scf_host(ks.sys, ks.functional, xc_impl="f64",
-                         conv_tol_d=cfg["d_tol"])
+                         conv_tol_d=cfg["d_tol"], **JAX_PARITY)
             rec["reference"] = {"converged": r.converged, "cycles": r.n_iter,
                                 "e_tot": r.e_tot, "s": synced_time(dev) - t0,
                                 "dE_mesh": e - r.e_tot}

@@ -34,6 +34,7 @@ written by this tool.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import sys
@@ -89,7 +90,9 @@ def rescue_system(sys_, functional, env=None, callback=None,
 
     env = os.environ if env is None else env
     annealed_fn = annealed_fn or scf_host_annealed
-    runner = runner or scf_host
+    # the JAX package's GGA potential (half_sigma): the rescued rows are
+    # compared with its sweep's record
+    runner = runner or functools.partial(scf_host, half_sigma=True)
     mixer, xc_impl, extra = parse_env_hooks(env)
     r = annealed_fn(sys_, functional, runner=runner, xc_impl=xc_impl,
                     mixer=mixer, callback=callback, **extra)
@@ -155,7 +158,8 @@ def main(argv=None) -> int:
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", RuntimeWarning)
             setup = kohn_sham.prepare(mol, "B3LYP",
-                                      grid_level=args.grid_level, device=dev)
+                                      grid_level=args.grid_level, device=dev,
+                                      cd_tol=kohn_sham.CD_TOL)
         _sync(dev)
         setup_s = time.time() - t0
         t0 = time.time()

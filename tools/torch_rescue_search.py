@@ -97,7 +97,8 @@ def run_protocol(setup, knobs: dict, dm0=None):
 
     def logged(sys_, functional, **kw):
         t0 = time.time()
-        r = scf_host(sys_, functional, **kw)
+        # the JAX package's GGA potential (half_sigma), as rescue_system's
+        r = scf_host(sys_, functional, half_sigma=True, **kw)
         torch.cuda.synchronize()
         runs.append({"kt": kw.get("smear_kt", 0.0), "converged": r.converged,
                      "cycles": r.n_iter, "e_tot": r.e_tot,
@@ -140,7 +141,8 @@ def main(argv=None) -> int:
                 warnings.simplefilter("ignore", RuntimeWarning)
                 setups[level] = kohn_sham.prepare(mol, "B3LYP",
                                                   grid_level=level,
-                                                  device="cuda")
+                                                  device="cuda",
+                                                  cd_tol=kohn_sham.CD_TOL)
             print(f"  prepare grid {level}: {time.time() - t0:.2f} s",
                   flush=True)
         if start is not None and start not in final_dm:
