@@ -19,6 +19,16 @@ raises and the script exits non-zero without the final line):
         calls, CUDA events) beside the bound: K4's f64 operations
         (two_electron.k4_flops, times 81 primitive quartets a quartet) at
         67 TFLOP/s, with the 34 TFLOP/s vector rate beside it
+     c. K5, the AO-plane kernel (csrc/ao_eval.cu), against its plain
+        version (engine/ao_eval.eval_ao_reference, the eager chunks) on the
+        card: DHA and Vitamin-B2 at grid 3 with deriv 0 and 1, and the north
+        star's grid-1 points (C33H56N7O17P3S, 540,054 points, nao 377) with
+        deriv 1; each plane within K5_TOL of its largest magnitude, one
+        launch a call, with torch.cuda.synchronize() after it; K5 (on the
+        packed table and coordinates on the card), the whole eval_ao call
+        (packing and the coordinates' upload included) and plain ms (median
+        of 25 calls, CUDA events) beside the bound: the planes' f64 bytes,
+        written once, at 3.35 TB/s
   3. each kernel against its plain PyTorch version and the f64 engine on
      H2O (grid 1) and benzene (grid 3) for LDA/GGA/B3LYP, and above npad
      64 at the density-fitting shapes: Decane's first 65 AOs (npad 72,
@@ -182,10 +192,10 @@ holds K1 to its plain version and to the f64 engine at V_xc = dE_xc/dD.
 The last three lines are the kernels' JSON record (every kernel with its
 launches on its path, its largest deviation from its plain version, its
 time, the plain version's, its bound and what sets it, and library_ms:
-null, since no one PyTorch call computes a fused XC body or a quartet
-block; K4's launches are 4a's and 4b's), the card's name
-and power limit, and {"ok": true, "device": {...}}.  Imports nothing of
-JAX; needs a CUDA GPU.
+null, since no one PyTorch call computes a fused XC body, a quartet
+block or the AO planes; K4's and K5's launches are 4a's and 4b's), the
+card's name and power limit, and {"ok": true, "device": {...}}.  Imports
+nothing of JAX; needs a CUDA GPU.
 """
 
 from __future__ import annotations
@@ -221,6 +231,15 @@ K4_TOL = 1e-12
 # the card's f64 peaks (NVIDIA's H100 SXM data sheet): tensor-core FMA and
 # the vector units
 F64_PEAK, F64_VECTOR = 67e12, 34e12
+# K5 against its plain version (both f64; the order of the term sums and
+# the exp's last bits differ), of the largest |ao| (and of the largest
+# |grad|); K5's bound, the bytes of its planes at the card's HBM rate
+# (NVIDIA's H100 SXM data sheet)
+K5_TOL = 1e-13
+HBM_BYTES_S = 3.35e12
+# phase 2c's shapes: (molecule, grid level, derivs)
+AO_SHAPES = (("DHA", 3, (0, 1)), ("Vitamin-B2", 3, (0, 1)),
+             ("C33H56N7O17P3S", 1, (1,)))
 # phase 4 holds the port to the JAX package's recorded energies (BENCH,
 # docs/RESULTS.md, the golden rows, the RI references, the north star, the
 # sweep, the rescue record), whose GGA potential has half the sigma term of
@@ -299,6 +318,11 @@ DF_SHAPES = (("Decane", 3, None), ("DHA", 3, None),
 DF_SUB_AOS = {"Decane": 65, "C33H56N7O17P3S": 197}
 KERNEL_SRC = "quantum_compute_dft_tpu_torch/csrc/fused_xc.cu"
 K4_SRC = "quantum_compute_dft_tpu_torch/csrc/eri_quartet.cu"
+K5_SRC = "quantum_compute_dft_tpu_torch/csrc/ao_eval.cu"
+# the eager chunks K5 replaces, the port of the JAX package's AO evaluation
+# (which XLA compiles: no Pallas kernel)
+K5_REPLACES = ("quantum_compute_dft_tpu_torch/engine/ao_eval.py::_eval_chunk"
+               " (quantum_compute_dft_tpu/engine/ao_eval.py::_eval_chunk)")
 # the eager tile K4 replaces, the port of the JAX package's quartet stage
 # (which XLA compiles: no Pallas kernel)
 K4_REPLACES = ("quantum_compute_dft_tpu_torch/integrals/two_electron.py::"
@@ -451,6 +475,72 @@ def phase_k4(dev, reps=25):
     _phase("2b K4", t0, f"K4 within {K4_TOL:g} of max |W| at L = 2 (DHA "
            "diagonal, first panel and ragged pivots; Benzene W) and L = 4 "
            "(Se W), one launch a call")
+    return out
+
+
+def phase_ao(dev, reps=25):
+    """2c: K5 against its plain version at AO_SHAPES; -> {case: record}."""
+    t0 = time.time()
+    import torch
+    import torch_kernel_timing as kt
+
+    from quantum_compute_dft_tpu_torch.basis import build_basis
+    from quantum_compute_dft_tpu_torch.engine import ao_eval
+    from quantum_compute_dft_tpu_torch.grids import build_grid
+    from quantum_compute_dft_tpu_torch.mol import from_xyz_file
+
+    out = {}
+    for name, level, derivs in AO_SHAPES:
+        mol = from_xyz_file(os.path.join(HERE, "molecules", name + ".xyz"))
+        basis = build_basis(mol)
+        coords = build_grid(mol, level=level, device=dev).coords
+        ngrid, nao = coords.shape[0], basis.nao
+        tab = ao_eval.pack_table(basis, dev)
+        crd = torch.as_tensor(coords, device=dev)
+        for deriv in derivs:
+            def kernel(d=deriv):
+                return ao_eval._k5(tab, crd, d)
+
+            def whole(d=deriv):
+                return ao_eval.eval_ao(basis, coords, d, device=dev)
+
+            def plain(d=deriv):
+                return ao_eval.eval_ao_reference(basis, coords, d,
+                                                 device=dev)
+
+            before = ao_eval.LAUNCHES["K5"]
+            got = whole()
+            torch.cuda.synchronize()  # a fault shows at the kernel
+            launches = ao_eval.LAUNCHES["K5"] - before
+            ref = plain()
+            torch.cuda.synchronize()
+            pairs = list(zip(got, ref)) if deriv else [(got, ref)]
+            errs = [float((a - b).abs().max()) / float(b.abs().max())
+                    for a, b in pairs]
+            ok = all(a.shape == b.shape and a.is_contiguous()
+                     for a, b in pairs)
+            del got, ref, pairs
+            label = f"{name} grid {level} deriv {deriv} ({ngrid} x {nao})"
+            if launches != 1 or not ok or not max(errs) <= K5_TOL:
+                raise AssertionError(f"K5 {label}: {launches} launches, "
+                                     f"relative max |diff| {errs}")
+            ms = kt.cuda_ms(kernel, reps=reps)
+            whole_ms = kt.cuda_ms(whole, reps=reps)
+            plain_ms = kt.cuda_ms(plain, reps=reps, warm=1)
+            nbytes = ngrid * nao * 8 * (4 if deriv else 1)
+            bound = nbytes / HBM_BYTES_S * 1e3
+            out[f"{name}_L{level}_d{deriv}"] = {
+                "ms": ms, "whole_ms": whole_ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bytes": nbytes, "ngrid": ngrid,
+                "nao": nao, "max_rel_err": max(errs)}
+            print(f"  K5 {label}: max |diff| {max(errs):.2e} of the largest "
+                  f"value; kernel {ms:.4f} ms, eval_ao {whole_ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms (median of {reps}), bound "
+                  f"{bound:.4f} ms ({nbytes / 1e9:.3f} GB at 3.35 TB/s, "
+                  f"{100 * bound / ms:.1f}%)", flush=True)
+            torch.cuda.empty_cache()
+    _phase("2c K5", t0, f"K5 within {K5_TOL:g} of the largest value of "
+           "each plane at every shape, one launch a call")
     return out
 
 
@@ -841,12 +931,13 @@ def _golden(molecule, functional):
 
 
 def _reset_launches():
-    from quantum_compute_dft_tpu_torch.engine import fused_xc
+    from quantum_compute_dft_tpu_torch.engine import ao_eval, fused_xc
     from quantum_compute_dft_tpu_torch.integrals import two_electron
 
     for k in fused_xc.LAUNCHES:
         fused_xc.LAUNCHES[k] = 0
     two_electron.LAUNCHES["K4"] = 0
+    ao_eval.LAUNCHES["K5"] = 0
 
 
 def _cli(fname, mol, dev, e_ref, *args):
@@ -878,7 +969,7 @@ def _run_path(name, runs, dev):
     molecule.  runs: (functional, molecule, xc_impl, reference energy,
     tolerance); the reference "previous" is the energy of the run before,
     None checks convergence only."""
-    from quantum_compute_dft_tpu_torch.engine import fused_xc
+    from quantum_compute_dft_tpu_torch.engine import ao_eval, fused_xc
     from quantum_compute_dft_tpu_torch.integrals import two_electron
 
     t0 = time.time()
@@ -899,7 +990,8 @@ def _run_path(name, runs, dev):
             raise AssertionError(f"{fname} {mol}: E={res.e_tot} vs "
                                  f"{e_ref} (tol {tol})")
         e_prev = res.e_tot
-    launches = dict(fused_xc.LAUNCHES, **two_electron.LAUNCHES)
+    launches = dict(fused_xc.LAUNCHES, **two_electron.LAUNCHES,
+                    **ao_eval.LAUNCHES)
     for kid in ("K1", "K2"):
         if launches[kid] < max(1, fast_cycles[kid]):
             raise AssertionError(f"{name}: {kid} {launches[kid]} launches "
@@ -1752,6 +1844,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     k4 = phase_k4(dev)
+    ao = phase_ao(dev)
     rec, cases = phase_kernels(dev)
     phase_k3(cases, rec)
     phase_k1_ablations(cases, rec)
@@ -1799,6 +1892,16 @@ def main() -> int:
         **{k: k4["dha_panel"][k] for k in ("ms", "plain_ms", "bound_ms")},
         "bound_by": "f64 operations at 67 TFLOP/s",
         "cases": k4, "library_ms": None})
+    if min(incore["K5"], df["K5"]) < 1:
+        raise AssertionError("K5 was not launched on the main paths")
+    kernels.append({
+        "name": "K5 AO planes", "route": "cuda", "source": K5_SRC,
+        "replaces": K5_REPLACES, "launches": df["K5"],
+        "incore_launches": incore["K5"],
+        "max_rel_err": max(r["max_rel_err"] for r in ao.values()),
+        **{k: ao["DHA_L3_d1"][k] for k in ("ms", "plain_ms", "bound_ms")},
+        "bound_by": "f64 bytes written at 3.35 TB/s", "cases": ao,
+        "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

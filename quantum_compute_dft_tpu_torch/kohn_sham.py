@@ -21,7 +21,10 @@ import torch
 from quantum_compute_dft_tpu_torch import setup_cache
 from quantum_compute_dft_tpu_torch.basis import build_basis
 from quantum_compute_dft_tpu_torch.basis.basis_set import sad_occupations
-from quantum_compute_dft_tpu_torch.engine.ao_eval import eval_ao
+from quantum_compute_dft_tpu_torch.engine.ao_eval import (
+    LAUNCHES as AO_LAUNCHES,
+    eval_ao,
+)
 from quantum_compute_dft_tpu_torch.grids import Grid, build_grid
 from quantum_compute_dft_tpu_torch.integrals import eri_full, one_electron
 from quantum_compute_dft_tpu_torch.integrals.cholesky import (
@@ -85,7 +88,8 @@ class KSSetup:
     # host included) and, when the Cholesky ran, its cholesky_card_s,
     # cholesky_host_s and cholesky_panels (integrals/cholesky.py); when the
     # Cholesky or the in-core ERIs ran, eri_kernel_launches (K4 launches,
-    # integrals/two_electron.py: 0 on the CPU)
+    # integrals/two_electron.py: 0 on the CPU); ao_kernel_launches (K5
+    # launches, engine/ao_eval.py: 1 on CUDA, 0 on the CPU)
     setup_split: dict | None = None
     # the artifacts loaded from the setup cache instead of built: any of
     # "int1e", "cdvec" (the Cholesky factor), "eri", "grid"
@@ -252,11 +256,13 @@ def prepare(
                                   atom_idx=grid.atom_idx)
         marks.append(synced_time(device))
     with span("prepare.ao"):
+        launches = AO_LAUNCHES["K5"]
         if fn.needs_grad:
             ao, ao_grad = eval_ao(basis, grid.coords, deriv=1, device=device)
         else:
             ao = eval_ao(basis, grid.coords, deriv=0, device=device)
             ao_grad = None
+        extra["ao_kernel_launches"] = AO_LAUNCHES["K5"] - launches
         marks.append(synced_time(device))
     with span("prepare.system"):
         sys = make_system(

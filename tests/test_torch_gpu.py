@@ -7,7 +7,8 @@ f64 engine (relative dE and max dV 5e-5, the Pallas contract) at every
 shape from H2O to npad 384 (184 and 200 among them), and K3 and phi3 (the bf16 mode of the same
 kernels) there against the plain K3 and the f64 engine (3e-4, 3e-3), and
 the ablations nophi and nov (K1's kernels with no product, and with no V
-kernel) there against their plain versions.
+kernel) there against their plain versions; K4 (the ERI quartet stage) and
+K5 (the AO planes) against their f64 plain versions.
 Imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -q tests/test_torch_gpu.py
@@ -414,3 +415,47 @@ def test_cuda_k4_matches_plain_version(molecule, entry):
     assert float((out - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
     if entry == "matrix":
         assert torch.equal(out, out.T)
+
+
+@pytest.mark.parametrize("deriv", [0, 1])
+@pytest.mark.parametrize("molecule", ["H2O", "H2Se", "DHA"])
+def test_cuda_k5_matches_plain_version(molecule, deriv):
+    """K5 (csrc/ao_eval.cu) against the eager chunks on the card: H2O and
+    H2Se (T = 9 terms, powers to 2) at grid 1, DHA's first 20,011 grid-3
+    points (a ragged last tile); one launch a call, each plane within
+    1e-13 of its largest magnitude.  Both are f64; the order of the term
+    sums and the exp's last bits differ."""
+    import warnings
+
+    from quantum_compute_dft_tpu_torch.engine import ao_eval
+
+    dev = _cuda()
+    mol = from_xyz_file(os.path.join(ROOT, "molecules", molecule + ".xyz"))
+    with warnings.catch_warnings():  # Se's tables are 'optimized'
+        warnings.simplefilter("ignore", RuntimeWarning)
+        basis = build_basis(mol)
+    grid = build_grid(mol, level=3 if molecule == "DHA" else 1, device=dev)
+    coords = grid.coords[:20011]
+    before = ao_eval.LAUNCHES["K5"]
+    got = eval_ao(basis, coords, deriv=deriv, device=dev)
+    torch.cuda.synchronize()  # a fault shows at the kernel that made it
+    ref = ao_eval.eval_ao_reference(basis, coords, deriv=deriv, device=dev)
+    assert ao_eval.LAUNCHES["K5"] == before + 1
+    pairs = zip(got, ref) if deriv else [(got, ref)]
+    for out, plain in pairs:
+        assert out.shape == plain.shape and out.is_cuda
+        assert out.dtype == torch.float64 and out.is_contiguous()
+        scale = float(plain.abs().max())
+        assert float((out - plain).abs().max()) <= 1e-13 * scale
+
+
+@pytest.mark.parametrize("name", ["LDA", "B3LYP"])
+def test_cuda_prepare_counts_one_ao_launch(name):
+    """prepare's AO planes (values for LDA, with gradients for B3LYP) are
+    one K5 launch, which setup_split records."""
+    dev = _cuda()
+    setup = kohn_sham.prepare(
+        from_xyz_file(os.path.join(ROOT, "molecules", "H2O.xyz")), name,
+        grid_level=1, device=dev)
+    assert setup.setup_split["ao_kernel_launches"] == 1
+    assert (setup.sys.ao_grad is not None) == FUNCTIONALS[name].needs_grad

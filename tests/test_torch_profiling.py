@@ -290,3 +290,4 @@ def test_bench_readers_on_the_cpu_rehearsal(tmp_path, monkeypatch):
     for name in ("scf.launches_per_cycle", "scf.syncs_per_cycle",
                  "scf.device_idle_pct", "xc_lda.roofline_pct"):
         assert name not in got, name
+    assert got["prepare.ao_kernel_launches"] == 0.0  # the plain version
