@@ -185,8 +185,9 @@ raises and the script exits non-zero without the final line):
      verify cycle and the final energy
 
 Phase 4 holds the port to the JAX package's recorded energies, which carry
-its GGA potential (half the sigma term of dE_xc/dD): its SCFs run with
-half_sigma=True (JAX_PARITY).  Phases 3 and 6 run the default, so phase 3
+its GGA potential (half the sigma term of dE_xc/dD): its SCFs run on the
+functional's jax_potential() copy (cli.run: half_sigma=True, JAX_CLI).
+Phases 3 and 6 run the default, so phase 3
 holds K1 to its plain version and to the f64 engine at V_xc = dE_xc/dD.
 
 The last three lines are the kernels' JSON record (every kernel with its
@@ -243,13 +244,13 @@ AO_SHAPES = (("DHA", 3, (0, 1)), ("Vitamin-B2", 3, (0, 1)),
 # phase 4 holds the port to the JAX package's recorded energies (BENCH,
 # docs/RESULTS.md, the golden rows, the RI references, the north star, the
 # sweep, the rescue record), whose GGA potential has half the sigma term of
-# dE_xc/dD: every SCF there runs with the keyword that reproduces it
-# (cli.run, scf_host, scf_jit); phases 3 and 6 run the default.  Its
-# Cholesky factor is at 1e-7 for every functional (the port takes 1e-8
-# under exact exchange): a prepare or job compared with it passes CD_TOL
-JAX_PARITY = dict(half_sigma=True)
+# dE_xc/dD: every SCF there runs on the functional's jax_potential() copy
+# (scf_host, scf_jit), and cli.run with the keyword that selects it;
+# phases 3 and 6 run the default.  Its Cholesky factor is at 1e-7 for
+# every functional (the port takes 1e-8 under exact exchange): a prepare
+# or job compared with it passes CD_TOL
 CD_TOL = 1e-7
-JAX_CLI = dict(JAX_PARITY, cd_tol=CD_TOL)
+JAX_CLI = dict(half_sigma=True, cd_tol=CD_TOL)
 BENZENE_E = -229.10950264    # BENCH_r05.json, Benzene PBE grid 3
 BENZENE_TOL = 1e-6
 # docs/RESULTS.md:61, 68 (B3LYP grid 3, density-fitted).  The reference
@@ -1144,8 +1145,8 @@ def phase_ri(dev, cholesky_s):
         peak = torch.cuda.max_memory_allocated(dev) / 1e9
         for xc_impl in schedules:
             t1 = time.time()
-            res = scf_host(setup.sys, setup.functional, xc_impl=xc_impl,
-                           **JAX_PARITY)
+            res = scf_host(setup.sys, setup.functional.jax_potential(),
+                           xc_impl=xc_impl)
             torch.cuda.synchronize()
             if not res.converged:
                 raise AssertionError(f"DHA B3LYP {tier} tier, {xc_impl}: did "
@@ -1291,24 +1292,24 @@ def _jit_vs_host(label, setup, dev, rec):
     from quantum_compute_dft_tpu_torch.scf import driver
     from quantum_compute_dft_tpu_torch.scf.driver import scf_host, scf_jit
 
-    s, fn = setup.sys, setup.functional
+    s, fn = setup.sys, setup.functional.jax_potential()
     t0 = time.time()
-    jit = scf_jit(s, fn, **JAX_PARITY)
+    jit = scf_jit(s, fn)
     w_jit = time.time() - t0
     block, driver.JIT_BLOCK = driver.JIT_BLOCK, 1
     try:
         t0 = time.time()
-        scf_jit(s, fn, **JAX_PARITY)
+        scf_jit(s, fn)
         w_jit1 = time.time() - t0
     finally:
         driver.JIT_BLOCK = block
     t0 = time.time()
-    host = scf_host(s, fn, xc_impl="f64", **JAX_PARITY)
+    host = scf_host(s, fn, xc_impl="f64")
     w_host = time.time() - t0
     _, pw_jit, busy_jit, share_jit = _profiled(
-        lambda: scf_jit(s, fn, **JAX_PARITY), dev)
+        lambda: scf_jit(s, fn), dev)
     _, pw_host, busy_host, share_host = _profiled(
-        lambda: scf_host(s, fn, xc_impl="f64", **JAX_PARITY), dev)
+        lambda: scf_host(s, fn, xc_impl="f64"), dev)
     rec[label] = {"jit_cycles": jit[2], "host_cycles": host.n_iter,
                   "jit_wall_s": w_jit, "jit_block1_wall_s": w_jit1,
                   "host_wall_s": w_host,
@@ -1412,8 +1413,8 @@ def phase_cli(dev):
             if ref_label is None:
                 from quantum_compute_dft_tpu_torch.scf.driver import scf_host
 
-                host = scf_host(setup.sys, setup.functional, xc_impl="f64",
-                                **JAX_PARITY)
+                host = scf_host(setup.sys, setup.functional.jax_potential(),
+                                xc_impl="f64")
             else:
                 rec["dha_cache"].update(warm_setup_s=setup.build_time,
                                         warm_hits=setup.cache_hits)
@@ -1711,8 +1712,8 @@ def phase_rescue(dev):
     setup_s = time.time() - t0
     cycles = []
 
-    def counted(*args, **kw):
-        r = scf_host(*args, **kw, **JAX_PARITY)
+    def counted(sys_, fn, **kw):
+        r = scf_host(sys_, fn.jax_potential(), **kw)
         cycles.append(r.n_iter)
         return r
 

@@ -168,9 +168,10 @@ def run(argv=None, *, half_sigma: bool = False,
 
     half_sigma and cd_tol (keywords of this call, not options of the
     command), for comparisons with the JAX package's PBE and B3LYP numbers:
-    with half_sigma every V_xc the job forms is the JAX package's, half the
-    sigma term of dE_xc/dD; cd_tol is the Cholesky's threshold in place of
-    the functional's (kohn_sham.CD_TOL, the JAX package's)."""
+    half_sigma runs the job on the functional's jax_potential() copy, so
+    every V_xc it forms is the JAX package's, half the sigma term of
+    dE_xc/dD; cd_tol is the Cholesky's threshold in place of the
+    functional's (kohn_sham.CD_TOL, the JAX package's)."""
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -194,11 +195,15 @@ def run(argv=None, *, half_sigma: bool = False,
         save_checkpoint,
     )
     from quantum_compute_dft_tpu_torch.scf.driver import SCFResult, scf_jit
+    from quantum_compute_dft_tpu_torch.xc.functionals import FUNCTIONALS
 
     mol = from_xyz_file(atom_path, charge=args.charge)
     grid = load_grid_file(args.grid_file) if args.grid_file else None
     density_fit = {"auto": None, "on": True, "off": False}[args.density_fit]
-    setup = kohn_sham.prepare(mol, args.functional,
+    functional = FUNCTIONALS[args.functional]
+    if half_sigma:
+        functional = functional.jax_potential()
+    setup = kohn_sham.prepare(mol, functional,
                               grid_level=args.grid_level, grid=grid,
                               prune=not args.no_prune,
                               density_fit=density_fit, df_aux=args.df_aux,
@@ -232,11 +237,10 @@ def run(argv=None, *, half_sigma: bool = False,
         # the JAX CLI's --jit-loop: scf_jit from the initial guess with the
         # module's convergence constants, no table, no ladder
         dm, eb, n_iter, done = scf_jit(setup.sys, setup.functional,
-                                       max_cycle=args.max_cycle,
-                                       half_sigma=half_sigma)
+                                       max_cycle=args.max_cycle)
         res = SCFResult(done, n_iter, dm, eb, eb.e_tot)
     else:
-        res = _scf(args, setup, mol_name, dm0, half_sigma)
+        res = _scf(args, setup, mol_name, dm0)
     if device.type == "cuda":
         torch.cuda.synchronize()
     total_time = time.time() - t_start
@@ -250,13 +254,11 @@ def run(argv=None, *, half_sigma: bool = False,
         xc_label = "fused f32 CUDA" if device.type == "cuda" else \
             "fused f32 plain (cpu)"
         xc_fn = lambda: xc_step_fused(  # noqa: E731
-            setup.functional, res.dm, s.ao, s.weights, s.ao_grad,
-            half_sigma=half_sigma)
+            setup.functional, res.dm, s.ao, s.weights, s.ao_grad)
     else:
         xc_label = "f64"
         xc_fn = lambda: xc_step(  # noqa: E731
-            setup.functional, res.dm, s.ao, s.weights, s.ao_grad,
-            half_sigma=half_sigma)
+            setup.functional, res.dm, s.ao, s.weights, s.ao_grad)
     with span("job.xc_statistic"):
         xc_ms = _time_xc(xc_fn, device)
 
@@ -282,11 +284,11 @@ def run(argv=None, *, half_sigma: bool = False,
     print("-" * 80)
     if args.validate:
         _validate(args.validate, mol, setup, res.e_tot, args.grid_level,
-                  device, half_sigma)
+                  device)
     return setup, res, total_time
 
 
-def _scf(args, setup, mol_name, dm0, half_sigma=False):
+def _scf(args, setup, mol_name, dm0):
     """The host SCF loop with the per-cycle table, and the annealing-ladder
     retry when the integer-occupation run fails."""
     from quantum_compute_dft_tpu_torch.scf.checkpoint import periodic_saver
@@ -307,7 +309,7 @@ def _scf(args, setup, mol_name, dm0, half_sigma=False):
 
     kwargs = dict(callback=cb, max_cycle=args.max_cycle,
                   conv_tol_e=args.conv_tol_e, conv_tol_d=args.conv_tol_d,
-                  dm0=dm0, half_sigma=half_sigma)
+                  dm0=dm0)
     # mid-run periodic saves (atomic): a crash deep into a long run resumes
     # from the last save instead of the initial guess
     ck_cb = (periodic_saver(args.checkpoint, setup.functional.name, mol_name)
@@ -330,8 +332,7 @@ def _scf(args, setup, mol_name, dm0, half_sigma=False):
     return res
 
 
-def _validate(mode, mol, setup, e_tot, grid_level, device,
-              half_sigma=False):
+def _validate(mode, mol, setup, e_tot, grid_level, device):
     """End-of-run oracle (ref dft.py:272-297): the native C++ host engine
     re-solves the molecule and the energy difference is printed.  PySCF is
     not available to the port, so 'pyscf' skips and 'auto' falls back to
@@ -343,11 +344,10 @@ def _validate(mode, mol, setup, e_tot, grid_level, device,
     if mode == "auto":
         print("PySCF not available; validating with the native C++ engine "
               "instead (--validate native).")
-    _validate_native(mol, setup, e_tot, grid_level, device, half_sigma)
+    _validate_native(mol, setup, e_tot, grid_level, device)
 
 
-def _validate_native(mol, setup, e_tot, grid_level, device,
-                     half_sigma=False):
+def _validate_native(mol, setup, e_tot, grid_level, device):
     """Re-solve with the independently written C++ host engine
     (runtime/native_scf.py: C-ABI XC/J, scipy eigh and numpy CDIIS, the
     reference driver's shape, ref dft.py:199-266) on the setup's in-core
@@ -390,7 +390,7 @@ def _validate_native(mol, setup, e_tot, grid_level, device,
     e_nat, _dm, n_iter, conv = run_native_scf(
         functional, host(s.hcore), host(s.s), host(s.eri), host(s.ao),
         host(s.weights), host(s.ao_grad), s.e_nuc, s.nocc,
-        half_sigma=half_sigma)
+        sigma_factor=setup.functional.sigma_factor)
     tag = "" if conv else " (UNCONVERGED)"
     print(f"native C++ ({functional}) energy : {e_nat:.10f} Ha"
           f"  [{n_iter} cycles{tag}]")

@@ -31,8 +31,9 @@ phi3 (K3's GGA body), nophi and nov share, each with a mode word of its own
     K2 and <= 168 for K1, the persistent ``xc_rho_res_kernel``): phi_D on
     the tensor cores for a 64-point tile and every mu, rho (K1: and grad
     rho, against the gradient planes read once) from the accumulators, the
-    functional, s = w vrho (K1: u_k = 4 w vsigma grad_k rho, so that V_xc
-    = dE_xc/dD; 2 with ``half_sigma=True``, the JAX package's factor) and
+    functional, s = w vrho (K1: u_k = c w vsigma grad_k rho with c the
+    functional's ``sigma_factor``: 4, so that V_xc = dE_xc/dD, or 2 under
+    ``jax_potential()``, the JAX package's factor) and
     the tile's E partial; phi_D never leaves registers;
   * V over the 32 x 32 tiles on or above the diagonal, split-K over grid
     chunks: K2's ``xc_lda_v_kernel`` (V = AO diag(s) AO^T, s AO formed at
@@ -91,7 +92,6 @@ from pathlib import Path
 
 import torch
 
-from quantum_compute_dft_tpu_torch.engine.xc_engine import sigma_factor
 from quantum_compute_dft_tpu_torch.xc.functionals import (
     Functional,
     value_and_potentials,
@@ -377,12 +377,10 @@ def _full_f32_matmul():
 
 def fused_xc_reference(functional: Functional, dm, aot, wt, grads, n: int,
                        *, phi_split: bool = False, ablate: str = "",
-                       reduce: str = "f32", base: bool = False,
-                       half_sigma: bool = False):
+                       reduce: str = "f32", base: bool = False):
     """Plain f32 PyTorch version of K1/K2 and of each variant (see the
     module note; K1base computes what K1 does) on packed planes -> (E_xc,
-    V_xc) in dm's dtype; V_xc is dE_xc/dD, or with half_sigma the JAX
-    package's (xc_engine.sigma_factor)."""
+    V_xc) in dm's dtype, V_xc under the functional's sigma_factor."""
     launch_names(functional, phi_split, ablate, reduce, base)
     npad = aot.shape[0]
     with _full_f32_matmul():
@@ -417,7 +415,7 @@ def fused_xc_reference(functional: Functional, dm, aot, wt, grads, n: int,
         else:
             bt = (wt * vrho) * aot
             if functional.needs_grad:
-                wvs = sigma_factor(half_sigma) * wt * vsigma
+                wvs = functional.sigma_factor * wt * vsigma
                 bt = (bt + (wvs * gr[0]) * grads[0] + (wvs * gr[1]) * grads[1]
                       + (wvs * gr[2]) * grads[2])
             v = (aot @ bt.T)[:n, :n].to(dm.dtype)
@@ -481,14 +479,12 @@ def _check_inputs(functional, dm, aot, wt, grads, n):
 
 
 def _launch(functional: Functional, dm, aot, wt, grads, n: int,
-            phi_split: bool, ablate: str, reduce: str, base: bool,
-            half_sigma: bool = False):
+            phi_split: bool, ablate: str, reduce: str, base: bool):
     names = launch_names(functional, phi_split, ablate, reduce, base)
     _check_inputs(functional, dm, aot, wt, grads, n)
     entry, arg = route(functional, phi_split, ablate, reduce, base)
     if entry == "tc":
-        return _launch_tc(functional, dm, aot, wt, grads, n, names[0], arg,
-                          half_sigma)
+        return _launch_tc(functional, dm, aot, wt, grads, n, names[0], arg)
     npad, gpad = aot.shape
     dev = aot.device
     f32 = torch.float32
@@ -508,7 +504,7 @@ def _launch(functional: Functional, dm, aot, wt, grads, n: int,
             functional.kind, arg, n,
             npad, gpad, chunk, _ptr(dm_p), _ptr(aot), _ptr(gx), _ptr(gy),
             _ptr(gz), _ptr(wt), _ptr(phi_bt), _ptr(e_part), _ptr(v_part),
-            _ptr(v_out), _ptr(e_out), sigma_factor(half_sigma), _stream())
+            _ptr(v_out), _ptr(e_out), functional.sigma_factor, _stream())
     _check(code, "fused_xc launch")
     for name in names:
         LAUNCHES[name] += 1
@@ -516,7 +512,7 @@ def _launch(functional: Functional, dm, aot, wt, grads, n: int,
 
 
 def _launch_tc(functional: Functional, dm, aot, wt, grads, n: int,
-               name: str, mode: int, half_sigma: bool = False):
+               name: str, mode: int):
     """K1/K2 (mode TF32X3), K3/phi3 (BF16X3), nophi (PHI_AO) and nov
     (TF32X3 | NO_V): the density's f32 copy (or its bf16 hi and lo planes;
     none for nophi), xc_rho(_res)_kernel, xc_gga_v_kernel (GGA body; not
@@ -560,7 +556,7 @@ def _launch_tc(functional: Functional, dm, aot, wt, grads, n: int,
             _ptr(dm64), dm_p,
             _ptr(aot), _ptr(gx), _ptr(gy), _ptr(gz), _ptr(wt), s, u,
             e_part, v_part, _ptr(v_out), _ptr(e_out),
-            sigma_factor(half_sigma), _stream())
+            functional.sigma_factor, _stream())
     _check(code, "fused_xc_tc launch")
     LAUNCHES[name] += 1
     return e_out[0].to(dm.dtype), v_out.to(dm.dtype)
@@ -568,30 +564,28 @@ def _launch_tc(functional: Functional, dm, aot, wt, grads, n: int,
 
 def fused_xc(functional: Functional, dm, aot, wt, grads, n: int, *,
              phi_split: bool = False, ablate: str = "", reduce: str = "f32",
-             base: bool = False, half_sigma: bool = False):
+             base: bool = False):
     """XC build from packed planes (pack_inputs) -> (E_xc, V_xc) in dm's
     dtype.  CUDA tensors launch the kernels of the variant (K1/K2 with no
-    keyword); CPU tensors run the plain version.  V_xc is dE_xc/dD, or with
-    half_sigma the JAX package's (the GGA body's u_k at 2 w vsigma)."""
+    keyword); CPU tensors run the plain version.  V_xc is under the
+    functional's sigma_factor (the GGA body's u_k at c w vsigma)."""
     if aot.is_cuda:
         return _launch(functional, dm, aot, wt, grads, n, phi_split, ablate,
-                       reduce, base, half_sigma)
+                       reduce, base)
     return fused_xc_reference(functional, dm, aot, wt, grads, n,
                               phi_split=phi_split, ablate=ablate,
-                              reduce=reduce, base=base,
-                              half_sigma=half_sigma)
+                              reduce=reduce, base=base)
 
 
 def xc_step_fused(functional: Functional, dm, ao, weights, ao_grad=None, *,
                   phi_split: bool = False, ablate: str = "",
-                  reduce: str = "f32", half_sigma: bool = False):
+                  reduce: str = "f32"):
     """Unpacked entry with the xc_step contract (packs on every call; the
     port of xc_step_pallas, whose phi_split it takes)."""
     aot, wt, grads = pack_inputs(ao, weights, ao_grad,
                                  needs_grad=functional.needs_grad)
     return fused_xc(functional, dm, aot, wt, grads, dm.shape[0],
-                    phi_split=phi_split, ablate=ablate, reduce=reduce,
-                    half_sigma=half_sigma)
+                    phi_split=phi_split, ablate=ablate, reduce=reduce)
 
 
 def functional_eval(functional: Functional, rho, sigma=None):

@@ -7,14 +7,15 @@ Port of ``quantum_compute_dft_tpu/engine/xc_engine.py`` (``_xc_block``,
     grad-rho, sigma for GGAs
     e_g     = rho_g * eps_xc(rho_g, sigma_g)
     E_xc    = sum_g w_g e_g
-    B_gi    = w_g (vrho_g phi_i + 4 vsigma_g grad-rho . grad-phi_i)
+    B_gi    = w_g (vrho_g phi_i + c vsigma_g grad-rho . grad-phi_i)
     V_xc    = phi^T B, symmetrized
 
 in float64 torch ops, chunked over the grid so the temporaries stay bounded.
-V_xc is dE_xc/dD: its sigma term is 2 vsigma grad-rho . grad(phi_u phi_v),
-as the reference's CUDA engine forms it (dft_solver.cu:427-430).  The JAX
-package forms B with 2 vsigma, half that term; ``half_sigma=True``
-reproduces its V_xc, for comparisons with it.
+c is ``functional.sigma_factor``: 4 by default, so that V_xc is dE_xc/dD,
+its sigma term 2 vsigma grad-rho . grad(phi_u phi_v) as the reference's
+CUDA engine forms it (dft_solver.cu:427-430).  The JAX package forms B
+with 2 vsigma, half that term; ``functional.jax_potential()`` carries c =
+2 and reproduces its V_xc, for comparisons with it.
 This is the port of XLA code, not of a kernel: its products are
 ``torch.matmul``.  The per-cycle f32 XC build of the 'fast' schedule is
 the hand-written CUDA kernel of engine/fused_xc.py.
@@ -27,14 +28,7 @@ import torch
 from quantum_compute_dft_tpu_torch.xc.functionals import Functional
 
 
-def sigma_factor(half_sigma: bool = False) -> float:
-    """The factor of w vsigma grad-rho . grad-phi in B: 4 gives V_xc =
-    dE_xc/dD; 2 (half_sigma) the JAX package's V_xc."""
-    return 2.0 if half_sigma else 4.0
-
-
-def _xc_block(functional: Functional, dm, aot, wt, grt, want_v: bool = True,
-              half_sigma: bool = False):
+def _xc_block(functional: Functional, dm, aot, wt, grt, want_v: bool = True):
     """(E_xc, V_half) contribution of one grid block -- TRANSPOSED
     (nao, g) layout.  want_v=False skips the B assembly and the V GEMM."""
     phi_d = dm @ aot                               # (nao, g)
@@ -50,7 +44,7 @@ def _xc_block(functional: Functional, dm, aot, wt, grt, want_v: bool = True,
             return exc, None
         gdot = torch.einsum("kg,kng->ng", grad_rho, grt)
         bt = wt[None, :] * (vrho[None, :] * aot
-                            + sigma_factor(half_sigma) * vsigma[None, :] * gdot)
+                            + functional.sigma_factor * vsigma[None, :] * gdot)
     else:
         e, vrho, _ = functional.exc_vxc(rho)
         exc = wt @ e
@@ -70,8 +64,7 @@ def _xc_block(functional: Functional, dm, aot, wt, grt, want_v: bool = True,
 _XC_CHUNK = 524288
 
 
-def _xc_scan(functional: Functional, dm, ao, weights, ao_grad, want_v: bool,
-             half_sigma: bool = False):
+def _xc_scan(functional: Functional, dm, ao, weights, ao_grad, want_v: bool):
     """Shared chunked driver for xc_step / xc_energy: (nao, g) layout,
     fixed-size grid chunks (one chunk up to 2 * _XC_CHUNK points)."""
     g = ao.shape[0]
@@ -84,7 +77,7 @@ def _xc_scan(functional: Functional, dm, ao, weights, ao_grad, want_v: bool,
         e_b, v_b = _xc_block(
             functional, dm, aot[:, s:s + c], weights[s:s + c],
             grt[:, :, s:s + c] if functional.needs_grad else None,
-            want_v=want_v, half_sigma=half_sigma,
+            want_v=want_v,
         )
         exc = exc + e_b
         if want_v:
@@ -98,13 +91,10 @@ def xc_step(
     ao: torch.Tensor,          # (ngrid, nao)
     weights: torch.Tensor,     # (ngrid,)
     ao_grad: torch.Tensor | None = None,   # (3, ngrid, nao) planar layout
-    *,
-    half_sigma: bool = False,
 ):
-    """-> (E_xc 0-dim tensor, V_xc (nao, nao) symmetric), float64; V_xc is
-    dE_xc/dD, or with half_sigma the JAX package's."""
-    exc, v_half = _xc_scan(functional, dm, ao, weights, ao_grad, want_v=True,
-                           half_sigma=half_sigma)
+    """-> (E_xc 0-dim tensor, V_xc (nao, nao) symmetric), float64; V_xc
+    under the functional's sigma_factor."""
+    exc, v_half = _xc_scan(functional, dm, ao, weights, ao_grad, want_v=True)
     return exc, 0.5 * (v_half + v_half.T)
 
 

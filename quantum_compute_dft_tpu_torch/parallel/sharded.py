@@ -42,16 +42,14 @@ from quantum_compute_dft_tpu_torch.parallel.mesh import (
 from quantum_compute_dft_tpu_torch.xc.functionals import Functional
 
 
-def sharded_xc_step(shard: Shard, functional: Functional,
-                    half_sigma: bool = False):
+def sharded_xc_step(shard: Shard, functional: Functional):
     """-> f(dm, ao_loc, w_loc, g_loc) -> (E_xc, V_xc), both summed over the
     ranks (g_loc None for functionals without gradients): the rank's rows
-    through the f64 engine, then one sum of [E, V_half] (half_sigma: the
-    JAX package's V_xc, as xc_step's)."""
+    through the f64 engine, then one sum of [E, V_half]."""
 
     def xc(dm, ao_loc, w_loc, g_loc=None):
         exc, v_half = _xc_scan(functional, dm, ao_loc, w_loc, g_loc,
-                               want_v=True, half_sigma=half_sigma)
+                               want_v=True)
         n = dm.shape[0]
         buf = all_reduce_sum(shard, torch.cat([exc.reshape(1),
                                                v_half.reshape(-1)]))

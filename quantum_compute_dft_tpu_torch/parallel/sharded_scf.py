@@ -30,11 +30,9 @@ from quantum_compute_dft_tpu_torch.scf.driver import SCFSystem, _density
 from quantum_compute_dft_tpu_torch.xc.functionals import Functional
 
 
-def make_sharded_scf(shard: Shard, sys: SCFSystem, functional: Functional,
-                     half_sigma: bool = False):
+def make_sharded_scf(shard: Shard, sys: SCFSystem, functional: Functional):
     """-> (step, dm0, diis0); step(dm, diis) -> (dm_new, diis, e_tot) runs
-    one cycle on this rank, in step with the others (half_sigma: the JAX
-    package's V_xc, as xc_step's).
+    one cycle on this rank, in step with the others.
 
     In-core (sys.eri: cut into AO row blocks) or density-fitted (sys.df_bq,
     the aux-major factor: cut along its aux axis).  Only the rank's shards
@@ -67,7 +65,7 @@ def make_sharded_scf(shard: Shard, sys: SCFSystem, functional: Functional,
     else:
         build_jk = sharded_df_builders(shard, sys.df_bq.permute(1, 2, 0),
                                        None, build_k=c_hf != 0.0)
-    xc_fn = sharded_xc_step(shard, functional, half_sigma)
+    xc_fn = sharded_xc_step(shard, functional)
 
     def step(dm, diis):
         j, k = build_jk(dm)

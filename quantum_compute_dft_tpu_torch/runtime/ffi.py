@@ -5,7 +5,7 @@ reference's ``DFTSolverWrapper`` (ref dft.py:15-95): the same C ABI, the
 same argtypes, pointers marshalled as uint64, over host numpy arrays.
 dft_host.cpp is the JAX package's file but for its V_xc, which is
 dE_xc/dD (the JAX package's has half the sigma term, which
-``half_sigma=True`` reproduces through ``DFT_SetSigmaFactor``); the library
+``sigma_factor=2.0`` reproduces through ``DFT_SetSigmaFactor``); the library
 is built from this package's copy with g++ on first use, into the
 repository's build/ directory (never into the package), under a name
 carrying the source hash.
@@ -60,7 +60,7 @@ class HostSolverWrapper:
     TYPE_B3LYP = 2
 
     def __init__(self, functional_type: str = "LDA",
-                 lib_path: str | None = None, half_sigma: bool = False):
+                 lib_path: str | None = None, sigma_factor: float = 4.0):
         lib_path = lib_path or build_library()
         self.lib = ctypes.CDLL(os.path.abspath(lib_path))
         self.lib.DFT_CreateSolver.argtypes = [ctypes.c_int]
@@ -88,7 +88,7 @@ class HostSolverWrapper:
         if not self.solver:
             raise RuntimeError("failed to create native host solver")
         # the factor of w vsigma grad-rho . grad-phi in B (dft_host.cpp)
-        self.lib.DFT_SetSigmaFactor(self.solver, 2.0 if half_sigma else 4.0)
+        self.lib.DFT_SetSigmaFactor(self.solver, sigma_factor)
 
     def __del__(self):
         if getattr(self, "solver", None):

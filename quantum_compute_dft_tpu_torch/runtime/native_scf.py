@@ -68,15 +68,15 @@ def run_native_scf(
     max_cycle: int = 200,
     conv_tol_e: float = 1e-8,
     conv_tol_d: float = 1e-6,
-    half_sigma: bool = False,
+    sigma_factor: float = 4.0,
 ):
     """-> (e_tot, dm, n_iter, converged); all compute through the C++
-    engine + numpy/scipy, mirroring the reference driver (half_sigma: the
-    JAX package's V_xc, HostSolverWrapper's)."""
+    engine + numpy/scipy, mirroring the reference driver (sigma_factor:
+    HostSolverWrapper's, 2.0 for the JAX package's V_xc)."""
     functional = functional.upper()
     c_hf = 0.2 if functional == "B3LYP" else 0.0  # ref dft.py:197
     nao = hcore.shape[0]
-    w = HostSolverWrapper(functional, half_sigma=half_sigma)
+    w = HostSolverWrapper(functional, sigma_factor=sigma_factor)
     eri2d = np.ascontiguousarray(np.asarray(eri).reshape(nao * nao, nao * nao))
     eri4d = np.asarray(eri)
     ao = np.ascontiguousarray(np.asarray(ao))

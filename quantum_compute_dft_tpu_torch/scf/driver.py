@@ -353,13 +353,11 @@ def _packed_for(sys: SCFSystem, needs_grad: bool):
     return ent
 
 
-def _fused_xc(sys: SCFSystem, functional: Functional, dm,
-              half_sigma: bool = False):
+def _fused_xc(sys: SCFSystem, functional: Functional, dm):
     from quantum_compute_dft_tpu_torch.engine.fused_xc import fused_xc
 
     aot, wt, grads = _packed_for(sys, functional.needs_grad)
-    return fused_xc(functional, dm, aot, wt, grads, sys.hcore.shape[0],
-                    half_sigma=half_sigma)
+    return fused_xc(functional, dm, aot, wt, grads, sys.hcore.shape[0])
 
 
 def _build_j(sys: SCFSystem, dm):
@@ -424,15 +422,13 @@ def _cycle_tail(sys: SCFSystem, functional: Functional, dm, diis, e_xc,
 
 def scf_iteration(sys: SCFSystem, functional: Functional, dm, diis,
                   shift: float = 0.0, smear_kt: float = 0.0,
-                  mixer: str = "cdiis", mix_alpha: float = 0.2,
-                  half_sigma: bool = False):
+                  mixer: str = "cdiis", mix_alpha: float = 0.2):
     """One f64 SCF cycle -> (dm_new, diis, energies [5], dnorm).
     mixer='mix' is damped linear mixing, D + alpha (D_new - D); dnorm is
-    then the blended step, as in the JAX package's scf_host.  half_sigma:
-    the JAX package's V_xc (xc_step)."""
+    then the blended step, as in the JAX package's scf_host."""
     with span("scf.xc"):
         e_xc, vxc = xc_step(functional, dm, sys.ao, sys.weights,
-                            sys.ao_grad, half_sigma=half_sigma)
+                            sys.ao_grad)
     dm_new, diis, energies = _cycle_tail(sys, functional, dm, diis, e_xc,
                                          vxc, shift, smear_kt, mixer)
     if mixer == "mix":
@@ -443,16 +439,15 @@ def scf_iteration(sys: SCFSystem, functional: Functional, dm, diis,
 def scf_iteration_fast(sys: SCFSystem, functional: Functional, dm, diis,
                        shift: float = 0.0, smear_kt: float = 0.0,
                        mixer: str = "cdiis", mix_alpha: float = 0.2,
-                       fast_k: bool = True, half_sigma: bool = False):
+                       fast_k: bool = True):
     """One kernel-phase cycle of the 'fast' and 'pallas' schedules: f32 XC
     from the fused kernel, then the tail (the f32 K when density-fitted
     and fast_k, the 'fast' schedule's; f64 K otherwise), with the density
     sanity guard (scf_host_staged's cycle).  -> (dm_new, diis, energies
     [5], dnorm).  Under mixer='mix' dnorm stays the raw map residual, as in
-    the JAX package's staged tail.  half_sigma: the JAX package's V_xc
-    (fused_xc)."""
+    the JAX package's staged tail."""
     with span("scf.xc"):
-        e_xc, vxc = _fused_xc(sys, functional, dm, half_sigma)
+        e_xc, vxc = _fused_xc(sys, functional, dm)
     dm_new, diis, energies = _cycle_tail(sys, functional, dm, diis, e_xc,
                                          vxc, shift, smear_kt, mixer,
                                          fast_k=fast_k)
@@ -521,7 +516,6 @@ def scf_host(
     mix_alpha: float = 0.2,
     checkpoint_cb: Callable | None = None,
     checkpoint_every: int = 25,
-    half_sigma: bool = False,
 ) -> SCFResult:
     """Host SCF loop; callback(cycle, eb, dE, dnorm) after each cycle.
 
@@ -561,9 +555,8 @@ def scf_host(
     density, so the stored e_tot is one cycle older than dm, as in the JAX
     loop (resume reads only dm).
 
-    half_sigma: every cycle's V_xc is the JAX package's, half the sigma
-    term of dE_xc/dD (xc_step, fused_xc), for comparisons with its GGA
-    numbers; never a CLI option."""
+    Every cycle's V_xc is under functional.sigma_factor (dE_xc/dD, or
+    the JAX package's under functional.jax_potential())."""
     if xc_impl not in ("f64", "fast", "pallas"):
         raise ValueError(f"xc_impl must be 'f64', 'fast' or 'pallas', not "
                          f"{xc_impl!r}")
@@ -578,16 +571,14 @@ def scf_host(
     dnorm_prev = float("inf")
     kernel_phase = xc_impl != "f64"   # 'fast': then f64 verify cycles
     kernel_step = functools.partial(scf_iteration_fast,
-                                    fast_k=xc_impl == "fast",
-                                    half_sigma=half_sigma)
-    f64_step = functools.partial(scf_iteration, half_sigma=half_sigma)
+                                    fast_k=xc_impl == "fast")
     k0 = dict(K_BUILDS)
     dn_streak = 0
     n_fast = 0
     done = None    # the converged cycle and its density
     for cycle in range(max_cycle):
         with span("scf.cycle"):
-            step = kernel_step if kernel_phase else f64_step
+            step = kernel_step if kernel_phase else scf_iteration
             dm_new, diis, en, dn_t = step(
                 sys, functional, dm, diis,
                 shift=0.0 if (use_adiis or use_mix) else shiftc.shift,
@@ -733,7 +724,7 @@ def _jit_carry(sys: SCFSystem) -> dict:
 
 
 def _jit_cycle(sys: SCFSystem, functional: Functional, st: dict,
-               max_cycle: int, half_sigma: bool = False):
+               max_cycle: int):
     """One cycle of scf_jit on the carry `st`, written back in place and
     masked: once done, or at max_cycle, it leaves `st` as it is.  The body
     of the JAX loop: an f64 scf_iteration with CDIIS (no level shift, ADIIS
@@ -744,8 +735,7 @@ def _jit_cycle(sys: SCFSystem, functional: Functional, st: dict,
     back its (eigenvalues, eigenvectors)."""
     dm = st["dm"]
     active = ~st["done"] & (st["cycle"] < max_cycle)
-    e_xc, vxc = xc_step(functional, dm, sys.ao, sys.weights, sys.ao_grad,
-                        half_sigma=half_sigma)
+    e_xc, vxc = xc_step(functional, dm, sys.ao, sys.weights, sys.ao_grad)
     j = _build_j(sys, dm)
     c_hf = functional.hyb_coeff
     k = None
@@ -782,8 +772,7 @@ def _run_cycle(gen) -> None:
 
 
 def _capture_cycle(sys: SCFSystem, functional: Functional, st: dict,
-                   max_cycle: int,
-                   half_sigma: bool = False) -> Callable[[], None]:
+                   max_cycle: int) -> Callable[[], None]:
     """One _jit_cycle on `st` captured as CUDA graphs -> replay().
 
     torch.linalg.eigh checks its result's info flag on the host, a sync
@@ -797,9 +786,9 @@ def _capture_cycle(sys: SCFSystem, functional: Functional, st: dict,
     with torch.cuda.stream(side):
         _run_cycle(_jit_cycle(sys, functional,
                               {k: v.clone() for k, v in st.items()},
-                              max_cycle, half_sigma))
+                              max_cycle))
     torch.cuda.current_stream().wait_stream(side)
-    gen = _jit_cycle(sys, functional, st, max_cycle, half_sigma)
+    gen = _jit_cycle(sys, functional, st, max_cycle)
     graphs, mats, outs = [], [], []
     send = None
     while True:
@@ -830,7 +819,7 @@ def _capture_cycle(sys: SCFSystem, functional: Functional, st: dict,
 
 
 def scf_jit(sys: SCFSystem, functional: Functional,
-            max_cycle: int = MAX_CYCLE, half_sigma: bool = False):
+            max_cycle: int = MAX_CYCLE):
     """The whole f64 SCF as one on-device loop (the JAX package's scf_jit,
     a lax.while_loop): -> (dm, EnergyBreakdown, n_iter, done).
 
@@ -840,20 +829,18 @@ def scf_jit(sys: SCFSystem, functional: Functional,
     cycle) once per block; the replays after convergence change nothing,
     so n_iter is the while-loop's.  A failed capture raises: there is no
     eager route on the card.  On the CPU the same cycle runs eagerly, one
-    per host check.  half_sigma: the JAX package's V_xc (xc_step)."""
+    per host check."""
     st = _jit_carry(sys)
     if sys.device.type == "cuda":
         try:
-            cycle = _capture_cycle(sys, functional, st, max_cycle,
-                                   half_sigma)
+            cycle = _capture_cycle(sys, functional, st, max_cycle)
         except Exception as e:
             raise RuntimeError(f"scf_jit: CUDA graph capture failed ({e})"
                                ) from e
         block = JIT_BLOCK
     else:
         def cycle():
-            _run_cycle(_jit_cycle(sys, functional, st, max_cycle,
-                                  half_sigma))
+            _run_cycle(_jit_cycle(sys, functional, st, max_cycle))
         block = 1
     while True:
         for _ in range(block):

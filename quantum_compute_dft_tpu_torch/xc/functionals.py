@@ -177,6 +177,11 @@ class Functional:
     hyb_coeff:  fraction of exact exchange mixed in by the SCF driver.
     kind:       the functional's index in the CUDA kernel's switch
                 (csrc/fused_xc.cu: 0 LDA, 1 PBE, 2 B3LYP, 3 zero).
+    sigma_factor: the factor c of w vsigma grad-rho_k . grad-phi in the
+                GGA potential's B.  With 4, V_xc = dE_xc/dD (the sigma
+                term is 2 vsigma grad-rho . grad(phi_u phi_v)); with 2,
+                V_xc is the JAX package's, half that term (jax_potential).
+                Every XC implementation reads it from here.
     """
 
     name: str
@@ -184,6 +189,12 @@ class Functional:
     needs_grad: bool
     hyb_coeff: float = 0.0
     kind: int = 0
+    sigma_factor: float = 4.0
+
+    def jax_potential(self) -> "Functional":
+        """This functional with the JAX package's V_xc (sigma_factor 2),
+        for comparisons with it; name, kind, hyb_coeff and f unchanged."""
+        return dataclasses.replace(self, sigma_factor=2.0)
 
     def exc_vxc(self, rho, sigma=None):
         """-> (e = rho*eps, vrho, vsigma) with the reference floors applied."""

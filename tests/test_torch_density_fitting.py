@@ -124,8 +124,8 @@ def test_df_scf_matches_jax_incore():
     s = setup.sys
     assert s.eri is None and s.df_bq.dtype == torch.float64
     assert s.df_bq32.dtype == torch.float32 and s.df_l is not None
-    # the JAX package's GGA potential (half_sigma)
-    res = scf_host(s, setup.functional, half_sigma=True)
+    # the JAX package's GGA potential (jax_potential)
+    res = scf_host(s, setup.functional.jax_potential())
     assert ref.converged and res.converged
     assert abs(res.e_tot - ref.e_tot) < 1e-6
 

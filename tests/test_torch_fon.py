@@ -121,9 +121,9 @@ def _jax_and_port(molecule, functional, level):
 def test_smeared_scf_matches_jax(molecule, functional, level, kt):
     js, setup = _jax_and_port(molecule, functional, level)
     ref = jax_driver.scf_host(js.sys, js.functional, smear_kt=kt)
-    # the JAX package's GGA potential (half_sigma)
-    r64 = driver.scf_host(setup.sys, setup.functional, smear_kt=kt,
-                          half_sigma=True)
+    # the JAX package's GGA potential (jax_potential)
+    fn = setup.functional.jax_potential()
+    r64 = driver.scf_host(setup.sys, fn, smear_kt=kt)
     assert ref.converged and r64.converged and r64.smear_kt == kt
     assert abs(r64.e_tot - ref.e_tot) < 1e-9
     # a smeared energy is not stationary at the fixed point (the free
@@ -134,8 +134,7 @@ def test_smeared_scf_matches_jax(molecule, functional, level, kt):
     # JAX loop converged to ||dD|| < 1e-10
     fixed = jax_driver.scf_host(js.sys, js.functional, smear_kt=kt,
                                 conv_tol_d=1e-10)
-    rfast = driver.scf_host(setup.sys, setup.functional, smear_kt=kt,
-                            xc_impl="fast", half_sigma=True)
+    rfast = driver.scf_host(setup.sys, fn, smear_kt=kt, xc_impl="fast")
     assert fixed.converged and rfast.converged and rfast.smear_kt == kt
     assert rfast.fast_cycles > 0 and rfast.verify_cycles > 0
     assert abs(rfast.e_tot - fixed.e_tot) < 1e-7

@@ -83,8 +83,8 @@ def test_reference_matches_pallas_and_f64(interpret, name):
                                    setup.sys.ao_grad, tile=512)
     fn = FUNCTIONALS[name]
     dm_t, ao_t, w_t, g_t = _torch(dm, ao, w, grad)
-    # the Pallas kernel's V_xc has half the sigma term (half_sigma)
-    e, v = fused_xc.xc_step_fused(fn, dm_t, ao_t, w_t, g_t, half_sigma=True)
+    # the Pallas kernel's V_xc has half the sigma term (jax_potential)
+    e, v = fused_xc.xc_step_fused(fn.jax_potential(), dm_t, ao_t, w_t, g_t)
     assert e.dtype == v.dtype == torch.float64
     e_px = float(e_px)
     assert abs(float(e) - e_px) < 2e-5 * abs(e_px)
@@ -123,7 +123,7 @@ def test_reference_matches_pallas_above_npad_64(interpret, decane_planes,
         jnp.asarray(w), None if grad is None else jnp.asarray(grad),
         tile=512)
     dm_t, ao_t, w_t, g_t = _torch(dm, ao, w, grad)
-    e, v = fused_xc.xc_step_fused(fn, dm_t, ao_t, w_t, g_t, half_sigma=True)
+    e, v = fused_xc.xc_step_fused(fn.jax_potential(), dm_t, ao_t, w_t, g_t)
     e_px = float(e_px)
     assert abs(float(e) - e_px) < 2e-5 * abs(e_px)
     assert np.abs(v.numpy() - np.asarray(v_px)).max() < 2e-5

@@ -3,13 +3,13 @@
 V_xc of PBE and B3LYP in each of the port's three implementations (the f64
 engine, K1's plain version fused_xc_reference, the C++ host engine of
 runtime/) against a central difference of the f64 engine's xc_energy in D
-along a seeded symmetric direction, on H2O at grid level 1; with
-half_sigma=True each gives the JAX package's V_xc (half the sigma term)
-instead.  The port's SCF energies against the benchmark's plain reference
-(bench_torch/reference, V_xc by autograd), in-core within 1e-8 Eh and
-through the Cholesky within dha.sto3g.grid3.cd's 3e-6 Eh; the K build
-counts of SCFResult; the new cells' configuration and traffic; and the GGA
-cells' readers in a CPU rehearsal of the harness.
+along a seeded symmetric direction, on H2O at grid level 1; under the
+functional's jax_potential() each gives the JAX package's V_xc (half the
+sigma term) instead.  The port's SCF energies against the benchmark's
+plain reference (bench_torch/reference, V_xc by autograd), in-core within
+1e-8 Eh and through the Cholesky within dha.sto3g.grid3.cd's 3e-6 Eh; the
+K build counts of SCFResult; the new cells' configuration and traffic; and
+the GGA cells' readers in a CPU rehearsal of the harness.
 
 Tolerances: f64 V against the difference (h = 1e-4, error O(h^2)) 1e-7
 relative; K1's plain version is f32, 2e-6 relative (its own error against
@@ -69,20 +69,19 @@ def h2o():
     return out
 
 
-def _v(impl, setup, dm, half_sigma=False):
-    """V_xc of one implementation at dm (f64 tensor)."""
-    s, fn = setup.sys, setup.functional
+def _v(impl, setup, dm, fn=None):
+    """V_xc of one implementation at dm (f64 tensor) under fn (default:
+    the setup's functional)."""
+    s, fn = setup.sys, fn or setup.functional
     if impl == "f64":
-        return xc_step(fn, dm, s.ao, s.weights, s.ao_grad,
-                       half_sigma=half_sigma)[1]
+        return xc_step(fn, dm, s.ao, s.weights, s.ao_grad)[1]
     if impl == "fused_reference":
         aot, wt, grads = fused_xc.pack_inputs(s.ao, s.weights, s.ao_grad,
                                               needs_grad=True)
         return fused_xc.fused_xc_reference(fn, dm, aot, wt, grads,
-                                           setup.nao,
-                                           half_sigma=half_sigma)[1]
+                                           setup.nao)[1]
     vxc = np.zeros(tuple(dm.shape))
-    HostSolverWrapper(fn.name, half_sigma=half_sigma).compute_xc(
+    HostSolverWrapper(fn.name, sigma_factor=fn.sigma_factor).compute_xc(
         np.ascontiguousarray(dm.numpy()), s.ao.numpy(), s.weights.numpy(),
         vxc, np.ascontiguousarray(s.ao_grad.numpy()))
     return torch.from_numpy(vxc)
@@ -107,14 +106,14 @@ def test_vxc_is_the_derivative_of_exc(h2o, impl, name):
     assert torch.equal(v, v.T)
     assert abs(float(torch.sum(v * x)) - fd) < BAR[impl] * abs(fd)
     # the JAX package's V_xc misses half the sigma term: ~5% here
-    v_half = _v(impl, setup, dm, half_sigma=True)
+    v_half = _v(impl, setup, dm, setup.functional.jax_potential())
     assert abs(float(torch.sum(v_half * x)) - fd) > 1e-2 * abs(fd)
 
 
 @pytest.mark.parametrize("name", ["PBE", "B3LYP"])
 @pytest.mark.parametrize("impl", IMPLS)
 def test_half_sigma_gives_the_jax_packages_vxc(h2o, impl, name):
-    """With half_sigma each implementation gives the JAX package's V_xc:
+    """Under jax_potential() each implementation gives the JAX package's V_xc:
     the f64 engine and the C++ engine at f64 rounding, K1's plain version
     at its f32 bar against the f64 engine (the Pallas contract's 5e-5)."""
     setup, dm, _ = h2o[name]
@@ -125,7 +124,7 @@ def test_half_sigma_gives_the_jax_packages_vxc(h2o, impl, name):
                            jnp.asarray(s.ao.numpy()),
                            jnp.asarray(s.weights.numpy()),
                            jnp.asarray(s.ao_grad.numpy()))
-    v = _v(impl, setup, dm, half_sigma=True).numpy()
+    v = _v(impl, setup, dm, setup.functional.jax_potential()).numpy()
     tol = 5e-5 if impl == "fused_reference" else 1e-9
     assert np.abs(v - np.asarray(v_jax)).max() < tol
 

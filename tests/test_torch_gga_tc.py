@@ -8,9 +8,10 @@ The emulation does what the kernels do, in f32: each product runs as 3 x
 TF32 (test_torch_lda_tc.py's split: hi rounded to nearest with ties away,
 lo read truncated; hi.lo + lo.hi + hi.hi with f32 sums).  phi_D^T = AO^T
 D^T; rho = sum_mu phi_D AO and grad_k rho = 2 sum_mu phi_D dAO_k are folded
-from phi_D; sigma = |grad rho|^2; the functional; s = w vrho and u_k = 4 w
-vsigma grad_k rho (2 with half_sigma: the JAX package's V_xc, which the
-comparison with the Pallas kernel takes); B = ((s AO + u_0 dAO_0) + u_1
+from phi_D; sigma = |grad rho|^2; the functional; s = w vrho and u_k = c w
+vsigma grad_k rho (c the functional's sigma_factor, 4; 2 under
+jax_potential(): the JAX package's V_xc, which the comparison with the
+Pallas kernel takes); B = ((s AO + u_0 dAO_0) + u_1
 dAO_1) + u_2 dAO_2, each product rounded and the sum taken left to right,
 as the V kernel forms it;
 V + V^T = AO B^T + B AO^T as two 3 x TF32 products, its upper triangle
@@ -50,10 +51,7 @@ from quantum_compute_dft_tpu.xc.functionals import (
     FUNCTIONALS as JAX_FUNCTIONALS,
 )
 from quantum_compute_dft_tpu_torch.engine import fused_xc
-from quantum_compute_dft_tpu_torch.engine.xc_engine import (
-    sigma_factor,
-    xc_step,
-)
+from quantum_compute_dft_tpu_torch.engine.xc_engine import xc_step
 from quantum_compute_dft_tpu_torch.xc import FUNCTIONALS
 
 torch.set_num_threads(1)
@@ -64,8 +62,7 @@ H2O = [("O", (0.0, 0.0, 0.127)), ("H", (0.0, 0.758, -0.509)),
        ("H", (0.0, -0.758, -0.509))]
 
 
-def gga_tc_emulated(functional, dm, aot, wt, grads, n: int,
-                    half_sigma: bool = False):
+def gga_tc_emulated(functional, dm, aot, wt, grads, n: int):
     """K1 on packed planes, emulated -> (E_xc, V_xc) in dm's dtype."""
     npad = aot.shape[0]
     dm_p = fused_xc._pad_dm(dm, npad)
@@ -77,7 +74,7 @@ def gga_tc_emulated(functional, dm, aot, wt, grads, n: int,
                                                          sigma)
     exc = torch.sum(wt * e)
     s = wt * vrho
-    u = (sigma_factor(half_sigma) * wt * vsigma) * gr   # (3, gpad)
+    u = (functional.sigma_factor * wt * vsigma) * gr    # (3, gpad)
     b = s * aot
     for k in range(3):
         b = b + u[k] * grads[k]
@@ -126,7 +123,7 @@ def _check(name, dm, ao, w, grad, pallas=True):
     assert abs(float(e) - float(e64)) <= 5e-5 * abs(float(e64))
     assert float(torch.abs(v - v64).max()) < 5e-5
     if pallas:
-        e, v = gga_tc_emulated(fn, dm_t, aot, wt, grads, n, half_sigma=True)
+        e, v = gga_tc_emulated(fn.jax_potential(), dm_t, aot, wt, grads, n)
         e_px, v_px = px.xc_step_pallas(
             JAX_FUNCTIONALS[name], jnp.asarray(dm), jnp.asarray(ao),
             jnp.asarray(w), jnp.asarray(grad), tile=512)

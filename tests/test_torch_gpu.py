@@ -105,7 +105,7 @@ def test_cuda_kernel_matches_plain_version(name):
 @pytest.mark.parametrize("name", ["GGA", "B3LYP"])
 def test_cuda_gga_body_half_sigma_matches_plain_version(name, variant):
     """The factor of w vsigma reaches both C entries (fused_xc_tc and the
-    four-kernel pipeline): with half_sigma the GGA body gives its plain
+    four-kernel pipeline): under jax_potential() the GGA body gives its plain
     version's V_xc with half the sigma term (the JAX package's), the same
     E bit for bit, and a V_xc that the factor moves."""
     dev = _cuda()
@@ -118,11 +118,11 @@ def test_cuda_gga_body_half_sigma_matches_plain_version(name, variant):
     dm = initial_guess(s) + torch.tensor(pert + pert.T, device=dev)
     aot, wt, grads = fused_xc.pack_inputs(s.ao, s.weights, s.ao_grad,
                                           needs_grad=True)
-    e_k, v_k = fused_xc.fused_xc(fn, dm, aot, wt, grads, n, half_sigma=True,
-                                 **variant)
+    half = fn.jax_potential()
+    e_k, v_k = fused_xc.fused_xc(half, dm, aot, wt, grads, n, **variant)
     torch.cuda.synchronize()
-    e_p, v_p = fused_xc.fused_xc_reference(fn, dm, aot, wt, grads, n,
-                                           half_sigma=True, **variant)
+    e_p, v_p = fused_xc.fused_xc_reference(half, dm, aot, wt, grads, n,
+                                           **variant)
     e_d, v_d = fused_xc.fused_xc(fn, dm, aot, wt, grads, n, **variant)
     torch.cuda.synchronize()
     tol_v = 5e-5 if variant.get("phi_split") else 1e-5

@@ -73,9 +73,9 @@ def test_scf_jit_matches_jax_scf_jit():
         np.asarray(s.hcore), np.asarray(s.s), np.asarray(s.eri),
         np.asarray(s.ao), np.asarray(s.ao_grad), np.asarray(s.weights),
         s.e_nuc, s.nocc, s.nopen, sad, "B3LYP", device="cpu")
-    # the JAX package's GGA potential (half_sigma)
-    dm, eb, n_iter, done = scf_jit(setup.sys, setup.functional,
-                                   half_sigma=True)
+    # the JAX package's GGA potential (jax_potential)
+    dm, eb, n_iter, done = scf_jit(setup.sys,
+                                   setup.functional.jax_potential())
     assert bool(done_j) and done
     assert n_iter == int(n_j)
     assert abs(eb.e_tot - float(eb_j.e_tot)) < 1e-9

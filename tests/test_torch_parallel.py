@@ -143,7 +143,7 @@ def test_sharded_xc(inputs, world3, name):
         a["dm"], ao_s, w_s, g_s)
     e_one, v_one = xc_step(FUNCTIONALS[name], _t(a["dm"]), _t(a["ao"]),
                            _t(a["weights"]), _t(grad))
-    # the JAX package's V_xc has half the sigma term (half_sigma)
+    # the JAX package's V_xc has half the sigma term (jax_potential)
     e, v = world3[0][f"xc_{name}_half"]
     assert abs(e - float(e_jax)) < 1e-11 and _maxdiff(v, v_jax) < 1e-11
     e, v = world3[0][f"xc_{name}"]

@@ -145,8 +145,8 @@ def test_ri_fast_scf_matches_jax():
     assert setup.df_aux == "fast" and setup.ri_time > 0.0
     assert setup.ri_split["naux"] == setup.sys.df_bq.shape[0]
     assert setup.sys.eri is None and setup.sys.df_bq32 is not None
-    # the JAX package's GGA potential (half_sigma)
-    res = scf_host(setup.sys, setup.functional, half_sigma=True)
+    # the JAX package's GGA potential (jax_potential)
+    res = scf_host(setup.sys, setup.functional.jax_potential())
     assert ref.converged and res.converged
     assert abs(res.e_tot - ref.e_tot) < 1e-8
 
@@ -166,7 +166,7 @@ def test_ri_scf_matches_jax_b_form(tensors, tier):
     ref = jax_scf_host(js.sys, js.functional, **TIGHT)
     setup = kohn_sham.prepare(from_xyz_file(H2O), "B3LYP", grid_level=1,
                               density_fit=True, df_aux=tier, device="cpu")
-    res = scf_host(setup.sys, setup.functional, half_sigma=True, **TIGHT)
+    res = scf_host(setup.sys, setup.functional.jax_potential(), **TIGHT)
     assert ref.converged and res.converged
     assert abs(res.e_tot - ref.e_tot) < 1e-9
 
@@ -188,7 +188,7 @@ def test_df_override_matches_jax(tensors, kind):
     setup = kohn_sham.prepare(from_xyz_file(H2O), "B3LYP", grid_level=1,
                               _df_override=override, device="cpu")
     assert setup.df_aux == "override" and setup.sys.eri is None
-    res = scf_host(setup.sys, setup.functional, half_sigma=True, **kw)
+    res = scf_host(setup.sys, setup.functional.jax_potential(), **kw)
     assert ref.converged and res.converged
     assert abs(res.e_tot - ref.e_tot) < tol
 

@@ -75,8 +75,8 @@ def test_golden_rows(molecule, functional):
     row, tol = _golden(molecule, functional)
     setup = kohn_sham.prepare(from_xyz_file(_xyz(molecule)), functional,
                               grid_level=row["grid_level"], device="cpu")
-    # the golden rows carry the JAX package's GGA potential (half_sigma)
-    res = scf_host(setup.sys, setup.functional, half_sigma=True)
+    # the golden rows carry the JAX package's GGA potential (jax_potential)
+    res = scf_host(setup.sys, setup.functional.jax_potential())
     assert res.converged
     assert abs(res.e_tot - row["e_tot"]) < tol
 

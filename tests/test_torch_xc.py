@@ -13,6 +13,8 @@ pow/sqrt into ~2e-10 relative.  xc_step and
 xc_energy to 1e-10 absolute on H2O at grid 1 (grid sums of ~1e4 terms).
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,7 +27,9 @@ from quantum_compute_dft_tpu.engine.xc_engine import xc_step as jax_xc_step
 from quantum_compute_dft_tpu.mol import from_atoms as jax_from_atoms
 from quantum_compute_dft_tpu.scf.driver import initial_guess as jax_guess
 from quantum_compute_dft_tpu.xc import FUNCTIONALS as JAX_FUNCTIONALS
+from quantum_compute_dft_tpu_torch import kohn_sham
 from quantum_compute_dft_tpu_torch.engine.xc_engine import xc_energy, xc_step
+from quantum_compute_dft_tpu_torch.mol import from_atoms
 from quantum_compute_dft_tpu_torch.xc import FUNCTIONALS
 
 torch.set_num_threads(1)
@@ -74,11 +78,28 @@ def test_xc_step_matches_jax(name):
         return None if a is None else torch.tensor(np.asarray(a))
 
     fn = FUNCTIONALS[name]
-    # the JAX package's V_xc has half the sigma term (half_sigma)
-    e, v = xc_step(fn, t(dm), t(s.ao), t(s.weights), t(s.ao_grad),
-                   half_sigma=True)
+    # the JAX package's V_xc has half the sigma term (jax_potential)
+    e, v = xc_step(fn.jax_potential(), t(dm), t(s.ao), t(s.weights),
+                   t(s.ao_grad))
     e2 = xc_energy(fn, t(dm), t(s.ao), t(s.weights), t(s.ao_grad))
     assert abs(float(e) - float(e_ref)) < 1e-10
     assert abs(float(e2) - float(e_ref2)) < 1e-10
     assert np.abs(v.numpy() - np.asarray(v_ref)).max() < 1e-10
     assert np.abs(v.numpy() - v.numpy().T).max() == 0.0
+
+
+def test_sigma_factor_lives_on_the_functional():
+    """The GGA potential's convention is a field of Functional: 4 (V_xc =
+    dE_xc/dD) on every entry, 2 on jax_potential()'s copy, which differs
+    in no other field and is what prepare hands back as setup.functional."""
+    assert {fn.sigma_factor for fn in FUNCTIONALS.values()} == {4.0}
+    for fn in FUNCTIONALS.values():
+        half = fn.jax_potential()
+        assert half.sigma_factor == 2.0
+        for field in dataclasses.fields(fn):
+            if field.name != "sigma_factor":
+                assert getattr(half, field.name) == getattr(fn, field.name)
+    half = FUNCTIONALS["B3LYP"].jax_potential()
+    setup = kohn_sham.prepare(from_atoms(H2O), half, grid_level=1,
+                              device="cpu")
+    assert setup.functional is half

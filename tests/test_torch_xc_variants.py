@@ -119,9 +119,9 @@ def test_plain_k3_matches_pallas_phi_split_and_f64(interpret, name):
     setup, dm, planes = _inputs(name)
     fn = FUNCTIONALS[name]
     e_px, v_px = _pallas(setup, dm, phi_split=True)
-    # the Pallas kernel's V_xc has half the sigma term (half_sigma)
-    e, v = fused_xc.xc_step_fused(fn, *planes, phi_split=True,
-                                  half_sigma=True)
+    # the Pallas kernel's V_xc has half the sigma term (jax_potential)
+    e, v = fused_xc.xc_step_fused(fn.jax_potential(), *planes,
+                                  phi_split=True)
     assert e.dtype == v.dtype == torch.float64
     _close(e, v, e_px, v_px, 2e-5, 2e-5)
     e, v = fused_xc.xc_step_fused(fn, *planes, phi_split=True)
@@ -138,8 +138,8 @@ def test_ablation_matches_pallas(pallas_mode, name, ablate):
     setup, dm, planes = _inputs(name)
     pallas_mode(ablate=ablate, vpu_reduce=True)
     e_px, v_px = _pallas(setup, dm)
-    e, v = fused_xc.xc_step_fused(FUNCTIONALS[name], *planes, ablate=ablate,
-                                  half_sigma=True)
+    e, v = fused_xc.xc_step_fused(FUNCTIONALS[name].jax_potential(), *planes,
+                                  ablate=ablate)
     _close(e, v, e_px, v_px, 1e-6, 5e-5 * max(1.0, np.abs(v_px).max()))
     if ablate == "nov":
         assert not v.any()
@@ -151,13 +151,13 @@ def test_reduction_modes_match_pallas(pallas_mode, name):
     fn = FUNCTIONALS[name]
     pallas_mode()
     e_px, v_px = _pallas(setup, dm)
-    e, v = fused_xc.xc_step_fused(fn, *planes, reduce="split2",
-                                  half_sigma=True)
+    e, v = fused_xc.xc_step_fused(fn.jax_potential(), *planes,
+                                  reduce="split2")
     _close(e, v, e_px, v_px, 2e-5, 2e-5)
     pallas_mode(vpu_reduce=True)
     e_px, v_px = _pallas(setup, dm)
-    e, v = fused_xc.xc_step_fused(fn, *planes, reduce="f32",
-                                  half_sigma=True)
+    e, v = fused_xc.xc_step_fused(fn.jax_potential(), *planes,
+                                  reduce="f32")
     _close(e, v, e_px, v_px, 1e-6, 2e-5)
 
 

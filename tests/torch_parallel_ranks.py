@@ -47,7 +47,7 @@ def builders_and_steps(shard, incore: dict, dfsys: dict, ri: dict,
         e, v = sharded_xc_step(shard, FUNCTIONALS[name])(dm, ao, w, grad)
         out[f"xc_{name}"] = (float(e), _np(v))
         # the JAX package's V_xc, for the comparison with its sharded XC
-        e, v = sharded_xc_step(shard, FUNCTIONALS[name], half_sigma=True)(
+        e, v = sharded_xc_step(shard, FUNCTIONALS[name].jax_potential())(
             dm, ao, w, grad)
         out[f"xc_{name}_half"] = (float(e), _np(v))
     j_fn, k_fn = sharded_fock_builders(shard)

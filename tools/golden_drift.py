@@ -64,8 +64,8 @@ def _runners(key: str, table: dict, with_jax_setup: bool = False):
                            cd_tol=kohn_sham.CD_TOL)
     runners = {
         "jax": lambda **kw: jax_scf_host(js.sys, js.functional, **kw),
-        # the JAX package's GGA potential (half_sigma), as the table's
-        "port": lambda **kw: scf_host(ps.sys, ps.functional, half_sigma=True,
+        # the JAX package's GGA potential (jax_potential), as the table's
+        "port": lambda **kw: scf_host(ps.sys, ps.functional.jax_potential(),
                                       **kw)}
     if with_jax_setup:
         runners["jax_setup"] = js

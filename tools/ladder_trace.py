@@ -55,8 +55,8 @@ def trace(key: str, tol: float = 1e-9) -> dict:
         device="cpu")
     runners = {
         "jax": lambda **kw: jax_scf_host(js.sys, js.functional, **kw),
-        # the JAX package's GGA potential (half_sigma), as its loop's
-        "port": lambda **kw: scf_host(ps.sys, ps.functional, half_sigma=True,
+        # the JAX package's GGA potential (jax_potential), as its loop's
+        "port": lambda **kw: scf_host(ps.sys, ps.functional.jax_potential(),
                                       **kw)}
 
     rungs = {name: [] for name in runners}

@@ -64,10 +64,10 @@ def _runners():
         return bool(r.converged), r.n_iter, float(r.e_tot), np.asarray(r.dm)
 
     def port_run(dm0, **kw):
-        # with the JAX package's GGA potential (half_sigma), so that the
+        # with the JAX package's GGA potential (jax_potential), so that the
         # two packages run the same SCF
-        r = scf_host(ps.sys, ps.functional, dm0=torch.as_tensor(dm0),
-                     half_sigma=True, **kw)
+        r = scf_host(ps.sys, ps.functional.jax_potential(),
+                     dm0=torch.as_tensor(dm0), **kw)
         return bool(r.converged), r.n_iter, float(r.e_tot), r.dm.numpy()
 
     return {"jax": jax_run, "port": port_run}, (js.nao, js.ngrid)

@@ -125,10 +125,10 @@ def scf(ks, xc_impl: str, max_cycle: int = 400, **kw):
 
     dev = ks.sys.s.device
     t0 = synced_time(dev)
-    # the JAX package's GGA potential (half_sigma): the run is held to its
-    # recorded energy
-    r = scf_host(ks.sys, ks.functional, xc_impl=xc_impl, max_cycle=max_cycle,
-                 half_sigma=True, **kw)
+    # the JAX package's GGA potential (jax_potential): the run is held to
+    # its recorded energy
+    r = scf_host(ks.sys, ks.functional.jax_potential(), xc_impl=xc_impl,
+                 max_cycle=max_cycle, **kw)
     return r, synced_time(dev) - t0
 
 

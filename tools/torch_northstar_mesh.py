@@ -67,10 +67,10 @@ E_TOL, D_TOL = 1e-8, 1e-6           # the reference's convergence rule
 MAX_CYCLES = 200
 NORTHSTAR_TOL = 1e-6                # against ns.JAX_E
 BUILDERS_TOL = 1e-11                # tests/test_parallel.py's bar
-# the JAX package's GGA potential (half the sigma term of dE_xc/dD): the
-# loops' energies are held to its records (the north star's, chip_smoke.py's
-# DHA), so the sharded step, scf_iteration and scf_host all take it
-JAX_PARITY = dict(half_sigma=True)
+# the loops' energies are held to the JAX package's records (the north
+# star's, chip_smoke.py's DHA), so the sharded step, scf_iteration and
+# scf_host all run on the functional's jax_potential() copy: its GGA
+# potential, half the sigma term of dE_xc/dD
 
 
 def _setup(shard, cfg):
@@ -191,12 +191,12 @@ def mesh_run(shard, cfg) -> dict:
     dev = shard.device
     modes = cfg["modes"]
     ks, split = _setup(shard, cfg)
+    fn = ks.functional.jax_potential()
     rec = {"rank": shard.rank, "setup": split}
     if "builders" in modes:
         _builders(shard, ks, rec)
     t0 = synced_time(dev)
-    step, dm0, diis0 = make_sharded_scf(shard, ks.sys, ks.functional,
-                                        **JAX_PARITY)
+    step, dm0, diis0 = make_sharded_scf(shard, ks.sys, fn)
     split["shard_s"] = synced_time(dev) - t0
     if shard.rank == 0:
         rec.update(nao=ks.nao, ngrid=ks.ngrid,
@@ -219,9 +219,7 @@ def mesh_run(shard, cfg) -> dict:
             row = {"cycle": cycle, "e_mesh": e, "s_mesh": synced_time(dev) - t0}
             if shard.rank == 0:
                 t0 = synced_time(dev)
-                dm_s, diis_s, en, _ = scf_iteration(ks.sys, ks.functional,
-                                                    dm_s, diis_s,
-                                                    **JAX_PARITY)
+                dm_s, diis_s, en, _ = scf_iteration(ks.sys, fn, dm_s, diis_s)
                 row.update(e_single=float(en[0]),
                            s_single=synced_time(dev) - t0,
                            dE=e - float(en[0]),
@@ -242,8 +240,7 @@ def mesh_run(shard, cfg) -> dict:
                    cycle_s_median=statistics.median(r["s"] for r in rows))
         if shard.rank == 0 and cfg["reference"]:
             t0 = synced_time(dev)
-            r = scf_host(ks.sys, ks.functional, xc_impl="f64",
-                         conv_tol_d=cfg["d_tol"], **JAX_PARITY)
+            r = scf_host(ks.sys, fn, xc_impl="f64", conv_tol_d=cfg["d_tol"])
             rec["reference"] = {"converged": r.converged, "cycles": r.n_iter,
                                 "e_tot": r.e_tot, "s": synced_time(dev) - t0,
                                 "dE_mesh": e - r.e_tot}

@@ -34,7 +34,6 @@ written by this tool.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
-import functools
 import json
 import os
 import sys
@@ -90,9 +89,10 @@ def rescue_system(sys_, functional, env=None, callback=None,
 
     env = os.environ if env is None else env
     annealed_fn = annealed_fn or scf_host_annealed
-    # the JAX package's GGA potential (half_sigma): the rescued rows are
+    # the JAX package's GGA potential (jax_potential): the rescued rows are
     # compared with its sweep's record
-    runner = runner or functools.partial(scf_host, half_sigma=True)
+    runner = runner or (lambda s, fn, **kw: scf_host(s, fn.jax_potential(),
+                                                     **kw))
     mixer, xc_impl, extra = parse_env_hooks(env)
     r = annealed_fn(sys_, functional, runner=runner, xc_impl=xc_impl,
                     mixer=mixer, callback=callback, **extra)

@@ -97,8 +97,8 @@ def run_protocol(setup, knobs: dict, dm0=None):
 
     def logged(sys_, functional, **kw):
         t0 = time.time()
-        # the JAX package's GGA potential (half_sigma), as rescue_system's
-        r = scf_host(sys_, functional, half_sigma=True, **kw)
+        # the JAX package's GGA potential (jax_potential), as rescue_system's
+        r = scf_host(sys_, functional.jax_potential(), **kw)
         torch.cuda.synchronize()
         runs.append({"kt": kw.get("smear_kt", 0.0), "converged": r.converged,
                      "cycles": r.n_iter, "e_tot": r.e_tot,

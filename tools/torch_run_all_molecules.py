@@ -104,7 +104,7 @@ def recheck(sys_, functional, kt: float):
     the energy at kt when the ladder proper stopped at another kT."""
     return scf_host_annealed(
         sys_, functional, kts=tuple(k for k in ANNEAL_KTS if k >= kt),
-        finish_integer=False, mixer=RECHECK_MIXER, half_sigma=True)
+        finish_integer=False, mixer=RECHECK_MIXER)
 
 
 def run_one(name: str, functional: str, grid_level: int, xc_impl: str,
@@ -119,12 +119,12 @@ def run_one(name: str, functional: str, grid_level: int, xc_impl: str,
                                   device=dev, cd_tol=kohn_sham.CD_TOL)
     _sync(dev)
     setup_s = time.time() - t0
-    s, fn = setup.sys, setup.functional
+    # the JAX package's GGA potential (jax_potential): the rows are compared
+    # with its golden table and its sweep
+    s, fn = setup.sys, setup.functional.jax_potential()
 
     t0 = time.time()
-    # the JAX package's GGA potential (half_sigma): the rows are compared
-    # with its golden table and its sweep
-    r = scf_host(s, fn, xc_impl=xc_impl, half_sigma=True)
+    r = scf_host(s, fn, xc_impl=xc_impl)
     row = {"molecule": name, "functional": functional,
            "natom": len(mol.symbols), "nao": setup.nao, "ngrid": setup.ngrid,
            "basis_provenance": sorted({provenance(x) for x in mol.symbols}),
@@ -133,7 +133,7 @@ def run_one(name: str, functional: str, grid_level: int, xc_impl: str,
            "xc_impl": xc_impl, "ladder": not r.converged}
     if not r.converged:
         row.update(first_n_iter=r.n_iter, first_fast_cycles=r.fast_cycles)
-        r = scf_host_annealed(s, fn, mixer="adiis+cdiis", half_sigma=True)
+        r = scf_host_annealed(s, fn, mixer="adiis+cdiis")
         row["xc_impl"] = "f64"   # the ladder runs on the f64 host loop
     _sync(dev)
     row.update(e_tot=r.e_tot, converged=bool(r.converged), n_iter=r.n_iter,
