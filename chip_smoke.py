@@ -241,6 +241,15 @@ HBM_BYTES_S = 3.35e12
 # phase 2c's shapes: (molecule, grid level, derivs)
 AO_SHAPES = (("DHA", 3, (0, 1)), ("Vitamin-B2", 3, (0, 1)),
              ("C33H56N7O17P3S", 1, (1,)))
+# K6 against its plain version (both f64; the order of the products and
+# 1/R_ij against the division differ), absolute per weight (weights lie in
+# [0, 1]); its bound: K6_PAIR_OPS f64 instructions an ordered atom pair
+# (2 for mu, 2 for nu, 9 for the polynomial, 1 for s, 1 for the product) at
+# the vector rate, F64_VECTOR / 2 instructions a second (an FMA counts 2)
+K6_TOL = 1e-12
+K6_PAIR_OPS = 15
+# phase 2d's shapes: (molecule, grid level)
+BECKE_SHAPES = (("DHA", 3), ("Vitamin-B2", 3), ("C33H56N7O17P3S", 1))
 # phase 4 holds the port to the JAX package's recorded energies (BENCH,
 # docs/RESULTS.md, the golden rows, the RI references, the north star, the
 # sweep, the rescue record), whose GGA potential has half the sigma term of
@@ -320,6 +329,11 @@ DF_SUB_AOS = {"Decane": 65, "C33H56N7O17P3S": 197}
 KERNEL_SRC = "quantum_compute_dft_tpu_torch/csrc/fused_xc.cu"
 K4_SRC = "quantum_compute_dft_tpu_torch/csrc/eri_quartet.cu"
 K5_SRC = "quantum_compute_dft_tpu_torch/csrc/ao_eval.cu"
+K6_SRC = "quantum_compute_dft_tpu_torch/csrc/becke.cu"
+# the eager chunks K6 replaces, the port of the JAX package's partition
+# (which XLA compiles: no Pallas kernel)
+K6_REPLACES = ("quantum_compute_dft_tpu_torch/grids/becke.py::becke_weights"
+               " (quantum_compute_dft_tpu/grids/becke.py::becke_weights)")
 # the eager chunks K5 replaces, the port of the JAX package's AO evaluation
 # (which XLA compiles: no Pallas kernel)
 K5_REPLACES = ("quantum_compute_dft_tpu_torch/engine/ao_eval.py::_eval_chunk"
@@ -542,6 +556,69 @@ def phase_ao(dev, reps=25):
             torch.cuda.empty_cache()
     _phase("2c K5", t0, f"K5 within {K5_TOL:g} of the largest value of "
            "each plane at every shape, one launch a call")
+    return out
+
+
+def phase_becke(dev, reps=25):
+    """2d: K6 against its plain version at BECKE_SHAPES; -> {case:
+    record}."""
+    t0 = time.time()
+    import numpy as np
+    import torch
+    import torch_kernel_timing as kt
+
+    from quantum_compute_dft_tpu_torch.grids import becke, build_grid
+    from quantum_compute_dft_tpu_torch.mol import from_xyz_file
+
+    out = {}
+    for name, level in BECKE_SHAPES:
+        mol = from_xyz_file(os.path.join(HERE, "molecules", name + ".xyz"))
+        grid = build_grid(mol, level=level, device=dev)
+        args = (grid.coords, mol.coords, grid.atom_idx, mol.bragg_radii())
+        natm, ngrid = mol.natm, grid.ngrid
+        crd = torch.as_tensor(grid.coords, device=dev)
+        own = torch.as_tensor(grid.atom_idx, dtype=torch.int32, device=dev)
+        xyz = torch.as_tensor(mol.coords, device=dev)
+        tab = becke.k6_tables(xyz, torch.as_tensor(mol.bragg_radii(),
+                                                   device=dev))
+
+        def kernel():
+            return becke._k6(crd, own, xyz, tab)
+
+        def whole():
+            return becke.becke_partition(*args, device=dev)
+
+        def plain():
+            return becke.becke_weights_chunked(*args, device=dev)
+
+        before = becke.LAUNCHES["K6"]
+        got = whole()
+        launches = becke.LAUNCHES["K6"] - before
+        ref = plain()
+        err = float(np.abs(got - ref).max())
+        label = f"{name} grid {level} ({ngrid} points, {natm} atoms)"
+        if launches != 1 or got.shape != ref.shape or not err <= K6_TOL:
+            raise AssertionError(f"K6 {label}: {launches} launches, max "
+                                 f"|diff| {err:.3e}")
+        ms = kt.cuda_ms(kernel, reps=reps)
+        whole_ms = kt.cuda_ms(whole, reps=reps)
+        plain_ms = kt.cuda_ms(plain, reps=reps, warm=1)
+        pairs = ngrid * natm * (natm - 1)
+        bound = pairs * K6_PAIR_OPS / (F64_VECTOR / 2) * 1e3
+        out[f"{name}_L{level}"] = {
+            "ms": ms, "whole_ms": whole_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "pairs": pairs, "pair_ops": K6_PAIR_OPS,
+            "ngrid": ngrid, "natm": natm, "max_abs_err": err}
+        print(f"  K6 {label}: max |diff| {err:.2e}; kernel {ms:.4f} ms, "
+              f"becke_partition {whole_ms:.4f} ms, plain {plain_ms:.4f} ms "
+              f"(median of {reps}), bound {bound:.4f} ms ({pairs:.4e} "
+              f"ordered pairs x {K6_PAIR_OPS} f64 instructions at "
+              f"{F64_VECTOR / 2:.3g}/s, {100 * bound / ms:.1f}%)",
+              flush=True)
+        del crd, own, got, ref
+        torch.cuda.empty_cache()
+    _phase("2d K6", t0, f"K6 within {K6_TOL:g} of the plain weights at "
+           "every shape, one launch a call")
     return out
 
 
@@ -933,12 +1010,14 @@ def _golden(molecule, functional):
 
 def _reset_launches():
     from quantum_compute_dft_tpu_torch.engine import ao_eval, fused_xc
+    from quantum_compute_dft_tpu_torch.grids import becke
     from quantum_compute_dft_tpu_torch.integrals import two_electron
 
     for k in fused_xc.LAUNCHES:
         fused_xc.LAUNCHES[k] = 0
     two_electron.LAUNCHES["K4"] = 0
     ao_eval.LAUNCHES["K5"] = 0
+    becke.LAUNCHES["K6"] = 0
 
 
 def _cli(fname, mol, dev, e_ref, *args):
@@ -971,6 +1050,7 @@ def _run_path(name, runs, dev):
     tolerance); the reference "previous" is the energy of the run before,
     None checks convergence only."""
     from quantum_compute_dft_tpu_torch.engine import ao_eval, fused_xc
+    from quantum_compute_dft_tpu_torch.grids import becke
     from quantum_compute_dft_tpu_torch.integrals import two_electron
 
     t0 = time.time()
@@ -992,7 +1072,7 @@ def _run_path(name, runs, dev):
                                  f"{e_ref} (tol {tol})")
         e_prev = res.e_tot
     launches = dict(fused_xc.LAUNCHES, **two_electron.LAUNCHES,
-                    **ao_eval.LAUNCHES)
+                    **ao_eval.LAUNCHES, **becke.LAUNCHES)
     for kid in ("K1", "K2"):
         if launches[kid] < max(1, fast_cycles[kid]):
             raise AssertionError(f"{name}: {kid} {launches[kid]} launches "
@@ -1846,6 +1926,7 @@ def main() -> int:
     dev = torch.device("cuda")
     k4 = phase_k4(dev)
     ao = phase_ao(dev)
+    bk = phase_becke(dev)
     rec, cases = phase_kernels(dev)
     phase_k3(cases, rec)
     phase_k1_ablations(cases, rec)
@@ -1902,6 +1983,17 @@ def main() -> int:
         "max_rel_err": max(r["max_rel_err"] for r in ao.values()),
         **{k: ao["DHA_L3_d1"][k] for k in ("ms", "plain_ms", "bound_ms")},
         "bound_by": "f64 bytes written at 3.35 TB/s", "cases": ao,
+        "library_ms": None})
+    if min(incore["K6"], df["K6"]) < 1:
+        raise AssertionError("K6 was not launched on the main paths")
+    kernels.append({
+        "name": "K6 Becke partition", "route": "cuda", "source": K6_SRC,
+        "replaces": K6_REPLACES, "launches": df["K6"],
+        "incore_launches": incore["K6"],
+        "max_abs_err": max(r["max_abs_err"] for r in bk.values()),
+        **{k: bk["DHA_L3"][k] for k in ("ms", "plain_ms", "bound_ms")},
+        "bound_by": f"f64 instructions ({K6_PAIR_OPS} an ordered atom "
+                    "pair) at 17e12 a second", "cases": bk,
         "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -9,7 +9,8 @@ Native replacement for the reference's two grid paths:
     ref grid.py:6-20) -> :func:`load_grid_file`.
 
 A Grid holds host numpy arrays; kohn_sham.prepare moves them to its device
-with the AO planes.
+with the AO planes.  The Becke partition runs on the given device (K6 on
+CUDA, grids/becke.py), inside the span ``grid.becke``.
 """
 
 from __future__ import annotations
@@ -19,10 +20,11 @@ import dataclasses
 import numpy as np
 
 from quantum_compute_dft_tpu_torch.grids.angular import LEVELS, lebedev, period_of
-from quantum_compute_dft_tpu_torch.grids.becke import becke_weights_chunked
+from quantum_compute_dft_tpu_torch.grids.becke import becke_partition
 from quantum_compute_dft_tpu_torch.grids.radial import treutler_ahlrichs
 from quantum_compute_dft_tpu_torch.mol.elements import Z_OF
 from quantum_compute_dft_tpu_torch.mol.molecule import Molecule
+from quantum_compute_dft_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -55,7 +57,10 @@ def _prune_degrees(z: int, r: np.ndarray, degree: int) -> np.ndarray:
 
 
 def build_grid(mol: Molecule, level: int = 3, prune: bool = True,
-               device="cpu") -> Grid:
+               device="cpu", timings: dict | None = None) -> Grid:
+    """The molecule's grid at `level`, its Becke partition computed on
+    `device`; with `timings`, the partition's host seconds (ending in the
+    weights' copy to the host) are added to timings["becke_s"]."""
     coords_list, w_list, idx_list = [], [], []
     nrad_tab, deg_tab = LEVELS[level]
     for ia, sym in enumerate(mol.symbols):
@@ -80,9 +85,9 @@ def build_grid(mol: Molecule, level: int = 3, prune: bool = True,
     atom_idx = np.concatenate(idx_list)
 
     if mol.natm > 1:
-        w_becke = becke_weights_chunked(
-            coords, mol.coords, atom_idx, mol.bragg_radii(), device=device
-        )
+        with span("grid.becke", into=timings, key="becke_s"):
+            w_becke = becke_partition(coords, mol.coords, atom_idx,
+                                      mol.bragg_radii(), device=device)
         weights = w_quad * w_becke
     else:
         weights = w_quad

@@ -26,6 +26,9 @@ from quantum_compute_dft_tpu_torch.engine.ao_eval import (
     eval_ao,
 )
 from quantum_compute_dft_tpu_torch.grids import Grid, build_grid
+from quantum_compute_dft_tpu_torch.grids.becke import (
+    LAUNCHES as BECKE_LAUNCHES,
+)
 from quantum_compute_dft_tpu_torch.integrals import eri_full, one_electron
 from quantum_compute_dft_tpu_torch.integrals.cholesky import (
     cholesky_eri_vectors,
@@ -89,7 +92,10 @@ class KSSetup:
     # cholesky_host_s and cholesky_panels (integrals/cholesky.py); when the
     # Cholesky or the in-core ERIs ran, eri_kernel_launches (K4 launches,
     # integrals/two_electron.py: 0 on the CPU); ao_kernel_launches (K5
-    # launches, engine/ao_eval.py: 1 on CUDA, 0 on the CPU)
+    # launches, engine/ao_eval.py: 1 on CUDA, 0 on the CPU);
+    # becke_kernel_launches (K6 launches, grids/becke.py: 1 on CUDA when the
+    # grid was built, 0 on the CPU or when it was loaded or given) and, when
+    # the partition ran, becke_s (its seconds inside grid_s)
     setup_split: dict | None = None
     # the artifacts loaded from the setup cache instead of built: any of
     # "int1e", "cdvec" (the Cholesky factor), "eri", "grid"
@@ -240,6 +246,7 @@ def prepare(
                              f"not {df_aux!r}")
         marks.append(synced_time(device))
     with span("prepare.grid"):
+        launches = BECKE_LAUNCHES["K6"]
         if grid is None:
             gkey = f"{ck}_L{grid_level}_p{int(prune)}"
             got = setup_cache.load("grid", gkey,
@@ -250,10 +257,11 @@ def prepare(
                 grid = Grid(*got)
             else:
                 grid = build_grid(mol, level=grid_level, prune=prune,
-                                  device=device)
+                                  device=device, timings=extra)
                 setup_cache.store("grid", gkey, into=extra,
                                   coords=grid.coords, weights=grid.weights,
                                   atom_idx=grid.atom_idx)
+        extra["becke_kernel_launches"] = BECKE_LAUNCHES["K6"] - launches
         marks.append(synced_time(device))
     with span("prepare.ao"):
         launches = AO_LAUNCHES["K5"]

@@ -85,12 +85,12 @@ def points():
     computed)."""
     out = {n: build_grid(from_xyz_file(_xyz(n)), level=1).coords
            for n in ("H2O", "H2Se")}
-    real = builder.becke_weights_chunked
-    builder.becke_weights_chunked = lambda c, *a, **k: np.ones(len(c))
+    real = builder.becke_partition
+    builder.becke_partition = lambda c, *a, **k: np.ones(len(c))
     try:
         vb2 = build_grid(from_xyz_file(_xyz("Vitamin-B2")), level=1).coords
     finally:
-        builder.becke_weights_chunked = real
+        builder.becke_partition = real
     pick = np.random.default_rng(18).choice(len(vb2), 1500, replace=False)
     out["Vitamin-B2"] = vb2[np.sort(pick)]
     return out

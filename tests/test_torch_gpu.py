@@ -7,8 +7,9 @@ f64 engine (relative dE and max dV 5e-5, the Pallas contract) at every
 shape from H2O to npad 384 (184 and 200 among them), and K3 and phi3 (the bf16 mode of the same
 kernels) there against the plain K3 and the f64 engine (3e-4, 3e-3), and
 the ablations nophi and nov (K1's kernels with no product, and with no V
-kernel) there against their plain versions; K4 (the ERI quartet stage) and
-K5 (the AO planes) against their f64 plain versions.
+kernel) there against their plain versions; K4 (the ERI quartet stage), K5
+(the AO planes) and K6 (the Becke partition) against their f64 plain
+versions.
 Imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -q tests/test_torch_gpu.py
@@ -459,3 +460,43 @@ def test_cuda_prepare_counts_one_ao_launch(name):
         grid_level=1, device=dev)
     assert setup.setup_split["ao_kernel_launches"] == 1
     assert (setup.sys.ao_grad is not None) == FUNCTIONALS[name].needs_grad
+
+
+@pytest.mark.parametrize("molecule, level", [
+    ("H2O", 1), ("Benzene", 3), ("DHA", 3), ("Vitamin-B2", 3),
+    ("C33H56N7O17P3S", 1)])
+def test_cuda_k6_matches_plain_version(molecule, level):
+    """K6 (csrc/becke.cu) against the eager chunks on the card, over the
+    whole grid: H2O grid 1, Benzene, DHA and Vitamin-B2 grid 3 and the
+    117-atom C33H56N7O17P3S grid 1 (whose pair tables, 219 KB, exceed a
+    block's shared memory; 3, 12, 47 and 117 atoms leave a ragged last
+    atom tile); one launch a call, each weight within 1e-12.  Both are
+    f64; the order of the products and the multiplication by 1/R_ij
+    differ."""
+    from quantum_compute_dft_tpu_torch.grids import becke
+
+    dev = _cuda()
+    mol = from_xyz_file(os.path.join(ROOT, "molecules", molecule + ".xyz"))
+    grid = build_grid(mol, level=level, device=dev)
+    args = (grid.coords, mol.coords, grid.atom_idx, mol.bragg_radii())
+    before = becke.LAUNCHES["K6"]
+    got = becke.becke_partition(*args, device=dev)
+    assert becke.LAUNCHES["K6"] == before + 1
+    ref = becke.becke_weights_chunked(*args, device=dev)
+    assert got.shape == ref.shape and got.dtype == np.float64
+    assert float(np.abs(got - ref).max()) <= 1e-12
+
+
+def test_cuda_prepare_counts_one_becke_launch(tmp_path, monkeypatch):
+    """prepare on a cold cache builds the grid's partition in one K6
+    launch and times it; on a warm one it loads the grid: 0 launches."""
+    dev = _cuda()
+    monkeypatch.setenv("DFT_SETUP_CACHE", "1")
+    monkeypatch.setenv("DFT_SETUP_CACHE_DIR", str(tmp_path))
+    mol = from_xyz_file(os.path.join(ROOT, "molecules", "H2O.xyz"))
+    cold = kohn_sham.prepare(mol, "LDA", grid_level=1, device=dev)
+    warm = kohn_sham.prepare(mol, "LDA", grid_level=1, device=dev)
+    assert cold.setup_split["becke_kernel_launches"] == 1
+    assert 0.0 < cold.setup_split["becke_s"] <= cold.setup_split["grid_s"]
+    assert "grid" in warm.cache_hits
+    assert warm.setup_split["becke_kernel_launches"] == 0

@@ -68,8 +68,9 @@ def _job(tmp_path, monkeypatch):
 
 def test_phase_timer_and_trace(tmp_path, monkeypatch):
     """Off: no span in the trace, setup_split's totals filled; on: one
-    scf.cycle range per cycle, each holding XC, J, eigh and the fetch, and
-    prepare's five stages inside prepare."""
+    scf.cycle range per cycle, each holding XC, J, eigh and the fetch,
+    prepare's five stages inside prepare and the Becke partition inside its
+    grid stage."""
     with trace(str(tmp_path / "off")) as prof:
         setup, res = _job(tmp_path / "a", monkeypatch)
     names = {n for _, _, n in _spans(prof)}
@@ -91,6 +92,8 @@ def test_phase_timer_and_trace(tmp_path, monkeypatch):
     (prep,) = [s for s in spans if s[2] == "prepare"]
     for stage in STAGES:
         assert len(_inside(prep, spans, stage)) == 1, stage
+    (grid,) = _inside(prep, spans, "prepare.grid")
+    assert len(_inside(grid, spans, "grid.becke")) == 1
     (scf,) = [s for s in spans if s[2] == "scf"]
     assert len(_inside(scf, spans, "scf.cycle")) == res.n_iter
     assert len(_inside(scf, spans, "scf.energy_of_dm")) == 1
