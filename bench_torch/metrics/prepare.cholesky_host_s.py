@@ -1,6 +1,8 @@
-"""Seconds of the Cholesky factorization on the host (the downdates, the
-in-panel factorizations, the unpack and its upload), mean over the
-window's jobs: KSSetup.setup_split["cholesky_host_s"]."""
+"""Seconds of the Cholesky factorization (the downdates, the in-panel
+factorizations and the unpack), on the factor's device (the card) and
+paced by the host's pivot loop, one sync a column; the name is older than
+the move to the card.  Mean over the window's jobs:
+KSSetup.setup_split["cholesky_host_s"]."""
 
 
 def read(run):

@@ -1,11 +1,14 @@
-"""STO-3G for H, C, N and O, and the molecule, for the plain reference.
+"""STO-3G for H, C, N, O, P and S, and the molecule, for the plain
+reference.
 
-The published STO-3G (Hehre, Stewart, Pople, JCP 51, 2657 (1969)): each
-Slater shell is one universal 3-Gaussian fit scaled by the element's
-Slater exponent zeta (alpha = alpha_universal * zeta^2), with the
-contraction coefficients shared across elements and applied to normalized
-primitives.  The numbers are the fits and zetas the benchmark's
-configurations state; only s and p shells occur for these elements.
+The published STO-3G (Hehre, Stewart, Pople, JCP 51, 2657 (1969); the 3sp
+fit and the exponents of Na to Ar from Hehre, Ditchfield, Stewart and
+Pople, JCP 52, 2769 (1970)): each Slater shell is one universal 3-Gaussian
+fit scaled by the element's Slater exponent zeta (alpha = alpha_universal
+* zeta^2), with the contraction coefficients shared across elements and
+applied to normalized primitives.  The numbers are the fits and zetas the
+benchmark's configurations state; only s and p shells occur for these
+elements, and a 3sp shell is one more "sp" shell.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from math import pi
 import numpy as np
 
 ANGSTROM_TO_BOHR = 1.0 / 0.52917721092   # CODATA 2010
-Z_OF = {"H": 1, "C": 6, "N": 7, "O": 8}
+Z_OF = {"H": 1, "C": 6, "N": 7, "O": 8, "P": 15, "S": 16}
 
 # universal expansions: shell -> (alphas, {l: coefficients})
 _FITS = {
@@ -25,14 +28,21 @@ _FITS = {
     "2sp": ((0.994203, 0.231031, 0.0751386),
             {0: (-0.09996723, 0.39951283, 0.70011547),
              1: (0.15591627, 0.60768372, 0.39195739)}),
+    "3sp": ((0.4828540806, 0.1347150629, 0.05272656258),
+            {0: (-0.2196203690, 0.2255954336, 0.9003984260),
+             1: (0.01058760429, 0.5951670053, 0.4620010120)}),
 }
 _ZETA = {"H": {"1s": 1.24},
          "C": {"1s": 5.67, "2sp": 1.72},
          "N": {"1s": 6.67, "2sp": 1.95},
-         "O": {"1s": 7.66, "2sp": 2.25}}
+         "O": {"1s": 7.66, "2sp": 2.25},
+         "P": {"1s": 14.50, "2sp": 5.31, "3sp": 1.90},
+         "S": {"1s": 15.47, "2sp": 5.79, "3sp": 2.05}}
 
 # Bragg-Slater radii (Angstrom; H at the quadrature codes' 0.35)
-BRAGG_ANGSTROM = {"H": 0.35, "C": 0.70, "N": 0.65, "O": 0.60}
+BRAGG_ANGSTROM = {"H": 0.35, "C": 0.70, "N": 0.65, "O": 0.60, "P": 1.00,
+                  "S": 1.00}
+
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +70,10 @@ class Mol:
 
 
 def mol_from_angstrom(symbols, coords_angstrom) -> Mol:
+    missing = sorted(set(symbols) - set(Z_OF))
+    if missing:
+        raise ValueError(f"the reference has STO-3G for {', '.join(Z_OF)} "
+                         f"only, not {', '.join(missing)}")
     xyz = np.asarray(coords_angstrom, dtype=np.float64)
     return Mol(tuple(symbols), xyz * ANGSTROM_TO_BOHR)
 
@@ -79,8 +93,8 @@ def _norm(l: int, alpha: float) -> float:
 
 
 def shells(mol: Mol) -> list[Shell]:
-    """The molecule's shells: 1s as an "s" shell, 2sp as one "sp" shell
-    (s and p share their exponents)."""
+    """The molecule's shells: 1s as an "s" shell, 2sp and 3sp each as one
+    "sp" shell (s and p share their exponents)."""
     out = []
     for sym, xyz in zip(mol.symbols, mol.coords):
         for name, zeta in _ZETA[sym].items():

@@ -5,7 +5,8 @@ Gauss-Chebyshev (2nd kind) nodes, Lebedev angular points (scipy), the
 NWChem-style pruning near the nucleus and in the tail, and Becke's
 partition with the Bragg-radius size adjustment (Becke, JCP 88, 2547
 (1988)).  Level 3 is 55 radial points and degree 29 for H, 70 and 29 for
-C, N and O.  A copy, frozen here, of the definition the program builds.
+C, N and O, 80 and 35 for P and S.  A copy, frozen here, of the definition
+the program builds (its radial xi scales and its level table).
 """
 
 from __future__ import annotations
@@ -16,9 +17,16 @@ from scipy.integrate import lebedev_rule
 
 from .basis import Z_OF, bragg_bohr
 
-_XI = {"H": 0.8, "C": 1.1, "N": 0.9, "O": 0.9}
-# level -> (radial points, Lebedev degree) for periods 1 and 2
-LEVELS = {1: ((35, 45), (17, 19)), 3: ((55, 70), (29, 29))}
+# Treutler-Ahlrichs xi scales
+_XI = {"H": 0.8, "C": 1.1, "N": 0.9, "O": 0.9, "P": 1.1, "S": 1.0}
+# level -> (radial points, Lebedev degree) for periods 1, 2 and 3
+LEVELS = {1: ((35, 45, 50), (17, 19, 19)), 3: ((55, 70, 80), (29, 29, 35))}
+
+
+def period(sym: str) -> int:
+    """0, 1 or 2 for periods 1, 2 and 3: the index into LEVELS."""
+    z = Z_OF[sym]
+    return 0 if z <= 2 else 1 if z <= 10 else 2
 
 
 def radial(n: int, sym: str):
@@ -79,7 +87,7 @@ def build(mol, level: int, device):
     nrad, degs = LEVELS[level]
     cs, ws, own = [], [], []
     for ia, sym in enumerate(mol.symbols):
-        per = 0 if Z_OF[sym] <= 2 else 1
+        per = period(sym)
         r, wr = radial(nrad[per], sym)
         dg = prune(sym, r, degs[per])
         for deg in np.unique(dg):

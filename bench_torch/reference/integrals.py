@@ -1,18 +1,21 @@
 """Overlap, kinetic, nuclear-attraction and electron-repulsion integrals
 over s and sp shells, by McMurchie-Davidson, in plain torch float64.
 
-Shells are grouped in ordered pairs of one class ("s"/"sp" x "s"/"sp").
-A pair's primitive products carry their Hermite expansion coefficients
-E_tuv (Helgaker, Jorgensen, Olsen, ch. 9), with the contraction
-coefficients and the Gaussian-product prefactor folded in.  Then
+Shells are grouped in pairs i >= j of one class ("s"/"sp" x "s"/"sp");
+a shell paired with itself keeps only its components a >= b, so that
+every pair of AOs a >= b occurs once.  A pair's primitive products carry
+their Hermite expansion coefficients E_tuv (Helgaker, Jorgensen, Olsen,
+ch. 9), with the contraction coefficients and the Gaussian-product
+prefactor folded in.  Then
 
     (ab|cd) = sum_prims 2 pi^(5/2) / (p q sqrt(p + q))
               sum_tuv E^ab_tuv sum_t'u'v' (-1)^(t'+u'+v') E^cd_t'u'v'
               R_(t+t', u+u', v+v')(pq / (p + q), P - Q)
 
-is evaluated for every ordered pair of pairs, so each element of the
-(nao,)^4 tensor is written once and no symmetry is assumed.  The Boys
-function comes from the regularized lower incomplete gamma function.
+is evaluated for the pairs of shell pairs in one order and written, with
+its mirror, into the pair-packed (npair, npair) matrix G[ab, cd], npair =
+nao (nao + 1) / 2, pair index a (a + 1) / 2 + b.  The Boys function comes
+from the regularized lower incomplete gamma function.
 """
 
 from __future__ import annotations
@@ -116,12 +119,14 @@ def _e1d(imax: int, jmax: int, xpa, xpb, oo2p) -> dict:
 
 
 class PairClass:
-    """Ordered shell pairs of one class with their primitive products:
+    """Shell pairs i >= j of one class with their primitive products:
     p (npair, 9), P (npair, 9, 3), the Hermite coefficients
-    E (npair, 9, ncomp_a * ncomp_b, nherm) with coefficients and prefactor
-    folded in, and each pair's AO indices (npair, ncomp_a * ncomp_b)."""
+    E (npair, 9, ncomp, nherm) with coefficients and prefactor folded in,
+    and the AO indices a >= b of each pair's components (npair, ncomp),
+    with their pair-packed index a (a + 1) / 2 + b."""
 
-    def __init__(self, ka, kb, sa: list, sb: list, ao_a, ao_b, nao, device):
+    def __init__(self, ka, kb, comps, sa: list, sb: list, first_a, first_b,
+                 device):
         def t(x):
             return torch.as_tensor(np.asarray(x), dtype=torch.float64,
                                    device=device)
@@ -144,12 +149,14 @@ class PairClass:
               for d in range(3)]
         self.p, self.P, self.K, self.e1 = p, P, K, e1
         self.beta = be.expand_as(p)
-        self.cc = ca[:, :, None, :, None] * cb[:, None, :, None, :]
+        # each component's contraction coefficients, (np, 3, 3, ncomp)
+        self.cc = torch.stack([ca[:, :, None, x] * cb[:, None, :, y]
+                               for x, y in comps], -1)
         hs = herm(self.L)
-        comps = [(a, b) for a in COMPS[ka] for b in COMPS[kb]]
+        self.comps = [(COMPS[ka][x], COMPS[kb][y]) for x, y in comps]
         e = torch.zeros(p.shape + (len(comps), len(hs)), dtype=torch.float64,
                         device=device)
-        for ic, (pa, pb) in enumerate(comps):
+        for ic, (pa, pb) in enumerate(self.comps):
             for ih, h in enumerate(hs):
                 val = K.clone()
                 for d in range(3):
@@ -160,18 +167,20 @@ class PairClass:
                     val = val * c
                 if val is not None:
                     e[..., ic, ih] = val
-        na, nb = len(COMPS[ka]), len(COMPS[kb])
-        cc = self.cc.reshape(p.shape + (na * nb,))
-        self.E = (e * cc[..., None]).reshape(len(sa), 9, na * nb, len(hs))
-        rows = (np.asarray(ao_a)[:, :, None] * nao
-                + np.asarray(ao_b)[:, None, :]).reshape(len(sa), na * nb)
-        self.rows = torch.as_tensor(rows, device=device)
-        self.comps = comps
+        self.E = (e * self.cc[..., None]).reshape(len(sa), 9, len(comps),
+                                                  len(hs))
+        a = np.asarray(first_a)[:, None] + np.array([x for x, _ in comps])
+        b = np.asarray(first_b)[:, None] + np.array([y for _, y in comps])
+        self.a = torch.as_tensor(a, device=device)
+        self.b = torch.as_tensor(b, device=device)
+        self.pairs = self.a * (self.a + 1) // 2 + self.b
         self.pp = p.reshape(len(sa), 9)
         self.PP = P.reshape(len(sa), 9, 3)
 
 
 def pair_classes(shell_list: list[Shell], device) -> list[PairClass]:
+    """The shell pairs i >= j by class; the pairs i == j apart, with their
+    components a >= b only."""
     first, n = [], 0
     for s in shell_list:
         first.append(n)
@@ -179,18 +188,20 @@ def pair_classes(shell_list: list[Shell], device) -> list[PairClass]:
     out = []
     for ka in ("s", "sp"):
         for kb in ("s", "sp"):
-            ia = [i for i, s in enumerate(shell_list) if s.kind == ka]
-            ib = [i for i, s in enumerate(shell_list) if s.kind == kb]
-            pairs = [(i, j) for i in ia for j in ib]
-            if not pairs:
-                continue
-            sa = [shell_list[i] for i, _ in pairs]
-            sb = [shell_list[j] for _, j in pairs]
-            ao_a = [[first[i] + c for c in range(len(COMPS[ka]))]
-                    for i, _ in pairs]
-            ao_b = [[first[j] + c for c in range(len(COMPS[kb]))]
-                    for _, j in pairs]
-            out.append(PairClass(ka, kb, sa, sb, ao_a, ao_b, n, device))
+            for same in (False, True) if ka == kb else (False,):
+                pairs = [(i, j) for i, si in enumerate(shell_list)
+                         for j, sj in enumerate(shell_list[:i + 1])
+                         if (si.kind, sj.kind) == (ka, kb)
+                         and (i == j) == same]
+                if not pairs:
+                    continue
+                comps = [(x, y) for x in range(len(COMPS[ka]))
+                         for y in range(len(COMPS[kb])) if not same or x >= y]
+                out.append(PairClass(
+                    ka, kb, comps, [shell_list[i] for i, _ in pairs],
+                    [shell_list[j] for _, j in pairs],
+                    [first[i] for i, _ in pairs],
+                    [first[j] for _, j in pairs], device))
     return out
 
 
@@ -218,9 +229,8 @@ def one_electron(classes, nao: int, coords, charges, device):
             s_out.append(s1[0] * s1[1] * s1[2])
             t_out.append(t1[0] * s1[1] * s1[2] + s1[0] * t1[1] * s1[2]
                          + s1[0] * s1[1] * t1[2])
-        cc = pc.cc.reshape(p.shape + (len(pc.comps),))
-        s_val = (torch.stack(s_out, -1) * pc.K[..., None] * cc).sum((1, 2))
-        t_val = (torch.stack(t_out, -1) * pc.K[..., None] * cc).sum((1, 2))
+        s_val = (torch.stack(s_out, -1) * pc.K[..., None] * pc.cc).sum((1, 2))
+        t_val = (torch.stack(t_out, -1) * pc.K[..., None] * pc.cc).sum((1, 2))
         # nuclear attraction: -sum_C Z_C 2 pi / p sum_tuv E_tuv R_tuv(p, P-C)
         pp, PP = pc.pp[..., None], pc.PP[:, :, None, :]
         pc_d = PP - C[None, None, :, :]
@@ -231,21 +241,28 @@ def one_electron(classes, nao: int, coords, charges, device):
         rz = ((rs * Z[None, None, :, None]).sum(2)
               * (2.0 * pi / pc.pp)[..., None])
         v_val = -torch.einsum("bich,bih->bc", pc.E, rz)
-        rows = pc.rows.reshape(-1)
-        S[rows] = s_val.reshape(-1)
-        T[rows] = t_val.reshape(-1)
-        V[rows] = v_val.reshape(-1)
+        for rows in ((pc.a * nao + pc.b).reshape(-1),
+                     (pc.b * nao + pc.a).reshape(-1)):
+            S[rows] = s_val.reshape(-1)
+            T[rows] = t_val.reshape(-1)
+            V[rows] = v_val.reshape(-1)
     return (S.view(nao, nao), T.view(nao, nao), V.view(nao, nao))
 
 
-def eri(classes, nao: int, device, budget: int = 1 << 27) -> torch.Tensor:
-    """The (nao,)^4 electron-repulsion tensor in chemists' order (ab|cd);
-    the bra pairs go in chunks so that about `budget` float64 elements
-    are live at once."""
-    out = torch.empty(nao * nao, nao * nao, dtype=torch.float64,
-                      device=device)
-    for bra in classes:
-        for ket in classes:
+def eri_packed(classes, nao: int, device,
+               budget: int = 1 << 27) -> torch.Tensor:
+    """G[ab, cd] = (ab|cd) over the AO pairs a >= b and c >= d, pair-packed:
+    (npair, npair) float64.  Each class is paired with itself and the
+    classes before it, and within a class each bra pair with the ket pairs
+    up to the end of its chunk, so every pair of shell pairs is computed
+    once and written with its mirror, except that the pairs of one chunk
+    meet each other in both orders and are averaged, which keeps G exactly
+    symmetric; the bra pairs go in chunks so that about `budget` float64
+    elements are live at once."""
+    npair = nao * (nao + 1) // 2
+    out = torch.empty(npair, npair, dtype=torch.float64, device=device)
+    for ib, bra in enumerate(classes):
+        for ket in classes[:ib + 1]:
             L = bra.L + ket.L
             hb, hk = herm(bra.L), herm(ket.L)
             hs = herm(L)
@@ -257,9 +274,10 @@ def eri(classes, nao: int, device, budget: int = 1 << 27) -> torch.Tensor:
             nk = ket.pp.shape[0]
             live = 81 * nk * (3 * len(hs) + 2 * len(hb) * len(hk) + 16)
             step = max(1, budget // live)
-            q, Q = ket.pp[None, None], ket.PP[None, None]
             ek = ket.E * sign
             for s in range(0, bra.pp.shape[0], step):
+                e = min(nk, s + step) if ket is bra else nk
+                q, Q = ket.pp[None, None, :e], ket.PP[None, None, :e]
                 p = bra.pp[s:s + step, :, None, None]
                 P = bra.PP[s:s + step, :, None, None, :]
                 pq = p + q
@@ -273,11 +291,16 @@ def eri(classes, nao: int, device, budget: int = 1 << 27) -> torch.Tensor:
                 del r
                 m = rs[..., idx]                 # (b, 9, k, 9, hb, hk)
                 del rs
-                y = torch.einsum("bikjhg,kjcg->bikhc", m, ek)
+                y = torch.einsum("bikjhg,kjcg->bikhc", m, ek[:e])
                 del m
                 g = torch.einsum("biah,bikhc->bakc", bra.E[s:s + step], y)
                 del y
-                rows = bra.rows[s:s + step][:, :, None, None]
-                cols = ket.rows[None, None, :, :]
-                out[rows, cols] = g
-    return out.view(nao, nao, nao, nao)
+                if ket is bra:           # the chunk's pairs with each other
+                    blk = g[:, :, s:]
+                    g[:, :, s:] = 0.5 * (blk + blk.permute(2, 3, 0, 1))
+                lo = s if ket is bra else e  # the ket pairs before the chunk
+                rows, cols = bra.pairs[s:s + step], ket.pairs[:e]
+                out[rows[:, :, None, None], cols[None, None]] = g
+                out[cols[:lo, :, None, None], rows[None, None]] = \
+                    g[:, :, :lo].permute(2, 3, 0, 1)
+    return out

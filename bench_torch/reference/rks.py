@@ -2,12 +2,14 @@
 
     E[D] = tr(D h) + 1/2 tr(D J) - c/4 tr(D K) + E_xc[D] + E_nuc
 
-with J and K from the whole (nao,)^4 tensor, E_xc a quadrature on the
-grid, and the Kohn-Sham matrix F = dE/dD (the XC part by autograd through
-the density and its gradient).  The SCF starts from atomic occupations on
-the diagonal, mixes with Pulay's DIIS on FDS - SDF, and stops when the
-energy moves by less than 1e-10 Eh and the commutator's largest element
-is below 1e-7.  Imports nothing of the program under test.
+with J and K from the pair-packed electron-repulsion matrix G[ab, cd]
+(integrals.eri_packed; J = G d, K by blocks of rows unpacked on the
+device), E_xc a quadrature on the grid, and the Kohn-Sham matrix F = dE/dD
+(the XC part by autograd through the density and its gradient).  The SCF
+starts from atomic occupations on the diagonal, mixes with Pulay's DIIS on
+FDS - SDF, and stops when the energy moves by less than 1e-10 Eh and the
+commutator's largest element is below 1e-7.  Imports nothing of the
+program under test.
 """
 
 from __future__ import annotations
@@ -16,10 +18,16 @@ import torch
 
 from . import basis, grid, integrals, xc
 
-# atomic occupations of the guess, per shell: (1s), (2s, 2p x3)
+# atomic occupations of the guess, per shell: (1s), (2s, 2p x3),
+# (3s, 3p x3)
 _OCC = {"H": ((1.0,),), "C": ((2.0,), (2.0, 2 / 3, 2 / 3, 2 / 3)),
         "N": ((2.0,), (2.0, 1.0, 1.0, 1.0)),
-        "O": ((2.0,), (2.0, 4 / 3, 4 / 3, 4 / 3))}
+        "O": ((2.0,), (2.0, 4 / 3, 4 / 3, 4 / 3)),
+        "P": ((2.0,), (2.0, 2.0, 2.0, 2.0), (2.0, 1.0, 1.0, 1.0)),
+        "S": ((2.0,), (2.0, 2.0, 2.0, 2.0), (2.0, 4 / 3, 4 / 3, 4 / 3))}
+
+# elements of a block of K's rows: G's rows (ij) and their (i, j, k, l)
+K_BUDGET = 1 << 28
 
 
 def ao_values(shells, coords, deriv: bool):
@@ -63,11 +71,16 @@ class Reference:
         s, t, v = integrals.one_electron(classes, n, mol.coords, mol.charges,
                                          device)
         self.s, self.h = s, t + v
-        g = integrals.eri(classes, n, device)
+        self.eri = integrals.eri_packed(classes, n, device)
         del classes
-        self.eri_j = g.reshape(n * n, n * n)
-        self.eri_k = g.permute(0, 2, 1, 3).reshape(n * n, n * n)
-        del g
+        # the pair index of each (a, b), and the pairs a >= b in packed order
+        a = torch.arange(n, device=device)
+        hi = torch.maximum(a[:, None], a[None])
+        self.pair_of = hi * (hi + 1) // 2 + torch.minimum(a[:, None], a[None])
+        self.tril = tuple(torch.tril_indices(n, n, device=device))
+        # rows i of K a block: G's rows (ij) and their unpacked (i, j, k, l)
+        npair = self.eri.shape[0]
+        self.k_rows = max(1, K_BUDGET // (n * npair + n ** 3))
         self.coords, self.weights = grid.build(mol, grid_level, device)
         self.e_nuc = mol.energy_nuc()
         occ = []
@@ -76,6 +89,24 @@ class Reference:
                 occ.extend(o)
         self.dm0 = torch.diag(torch.tensor(occ, dtype=torch.float64,
                                            device=device))
+
+    def jk(self, dm, exchange: bool):
+        """(J, K | None) of the density: J = G d with d_ab = D_ab + D_ba
+        (a > b) and d_aa = D_aa; K_ik = sum_jl (ij|kl) D_jl, a block of
+        rows i at a time from G's rows (ij), unpacked over (k, l)."""
+        n = self.nao
+        d = (dm + dm.T - torch.diag(torch.diag(dm)))[self.tril]
+        j = (self.eri @ d)[self.pair_of]
+        if not exchange:
+            return j, None
+        k = torch.empty_like(dm)
+        cols = self.pair_of.reshape(-1)
+        for i in range(0, n, self.k_rows):
+            rows = self.pair_of[i:i + self.k_rows].reshape(-1)
+            slab = self.eri.index_select(0, rows).index_select(1, cols)
+            k[i:i + self.k_rows] = torch.matmul(
+                slab.view(-1, n, n, n), dm[:, :, None]).sum(1)[..., 0]
+        return j, k
 
     def xc(self, name: str, dm):
         """(E_xc, V_xc = dE_xc/dD) on the grid, in chunks of points."""
@@ -106,18 +137,19 @@ class Reference:
         """The converged total energy (Eh); raises when the SCF does not
         converge."""
         hyb = xc.FUNCTIONALS[name][2]
-        n, nocc = self.nao, self.mol.nocc
+        nocc = self.mol.nocc
         w, u = torch.linalg.eigh(self.s)
         x = u @ torch.diag(w.rsqrt()) @ u.T
         dm, e_old = self.dm0, None
         focks, errs = [], []
         for _ in range(max_cycle):
-            j = (self.eri_j @ dm.reshape(-1)).reshape(n, n)
-            k = (self.eri_k @ dm.reshape(-1)).reshape(n, n)
+            j, k = self.jk(dm, hyb != 0.0)
             exc, vxc = self.xc(name, dm)
+            ek = 0.0 if k is None else float((dm * k).sum())
             e = (float((dm * self.h).sum()) + 0.5 * float((dm * j).sum())
-                 - 0.25 * hyb * float((dm * k).sum()) + exc + self.e_nuc)
-            f = self.h + j - 0.5 * hyb * k + vxc
+                 - 0.25 * hyb * ek + exc + self.e_nuc)
+            f = self.h + j + vxc if k is None else \
+                self.h + j - 0.5 * hyb * k + vxc
             err = x.T @ (f @ dm @ self.s - self.s @ dm @ f) @ x
             comm = float(err.abs().max())
             done = e_old is not None and abs(e - e_old) < tol_e

@@ -52,12 +52,14 @@ def parse(argv=None):
     return p.parse_args(argv)
 
 
+JAX_MODULES = ("jax", "jaxlib", "flax", "quantum_compute_dft_tpu")
+
+
 def jax_loaded() -> list:
-    """Modules of JAX or of the JAX package that this process imported."""
+    """Modules of JAX, jaxlib, Flax or the JAX package that this process
+    imported, matched by their whole top-level name."""
     return sorted(m for m in sys.modules
-                  if m == "jax" or m.startswith("jax.")
-                  or m == "quantum_compute_dft_tpu"
-                  or m.startswith("quantum_compute_dft_tpu."))
+                  if m.split(".", 1)[0] in JAX_MODULES)
 
 
 def power_limit() -> str | None:
