@@ -29,20 +29,24 @@ import torch
 # (1e-8) exists because TPU f64 eigh is f32-quality; the card's f64 eigh
 # is native, so the exact-eigh threshold holds on both devices.
 TSVD_THRESH = 1e-13
+# the JAX package's bound on sum |c|: a wilder extrapolation is taken for
+# an ill-conditioning symptom and replaced by the newest Fock matrix
+MAX_COEF_SUM = 20.0
 
 
 class DIISState(NamedTuple):
     f_buf: torch.Tensor   # (M, nao, nao)
     e_buf: torch.Tensor   # (M, nao*nao)
     nsaved: int
+    max_coef_sum: float = MAX_COEF_SUM
 
 
 def diis_init(nao: int, space: int = 8, dtype=torch.float64,
-              device="cpu") -> DIISState:
+              device="cpu", max_coef_sum: float = MAX_COEF_SUM) -> DIISState:
     return DIISState(
         f_buf=torch.zeros((space, nao, nao), dtype=dtype, device=device),
         e_buf=torch.zeros((space, nao * nao), dtype=dtype, device=device),
-        nsaved=0,
+        nsaved=0, max_coef_sum=max_coef_sum,
     )
 
 
@@ -56,7 +60,7 @@ def diis_update(state: DIISState, f, dm, s, x):
     state.e_buf[slot] = err.reshape(-1)
     nsaved = state.nsaved + 1
     nused = min(nsaved, m)
-    new = DIISState(state.f_buf, state.e_buf, nsaved)
+    new = state._replace(nsaved=nsaved)
     if nused == 1:
         return new, f   # with a single stored matrix, extrapolation is id
 
@@ -75,7 +79,8 @@ def diis_update(state: DIISState, f, dm, s, x):
     ok = torch.abs(denom) > 1e-8
     coef = torch.where(ok, u / torch.where(ok, denom, 1.0), newest) * used
     # distrust wild extrapolations (an ill-conditioning symptom)
-    coef = torch.where(torch.sum(torch.abs(coef)) < 20.0, coef, newest)
+    coef = torch.where(torch.sum(torch.abs(coef)) < state.max_coef_sum,
+                       coef, newest)
     return new, torch.einsum("i,ijk->jk", coef, state.f_buf)
 
 
@@ -123,7 +128,8 @@ def diis_extrapolate(state: DIISGraphState, f, w_eig, v_eig):
     newest = (slots == (state.nsaved - 1) % m).to(f.dtype)
     ok = torch.abs(denom) > 1e-8
     coef = torch.where(ok, u / torch.where(ok, denom, 1.0), newest) * used
-    coef = torch.where(torch.sum(torch.abs(coef)) < 20.0, coef, newest)
+    coef = torch.where(torch.sum(torch.abs(coef)) < MAX_COEF_SUM, coef,
+                       newest)
     f_ext = torch.einsum("i,ijk->jk", coef, state.f_buf)
     # with a single stored matrix, extrapolation is the identity
     return torch.where(state.nsaved == 1, f, f_ext)

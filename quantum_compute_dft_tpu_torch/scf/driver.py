@@ -97,6 +97,30 @@ SHIFT_RELEASE = 1e-3    # engaged + ||dD|| below this -> hand back to DIIS
 # cycles hands the candidate to the f64 verify step without waiting for
 # the |dE| test, whose f32 quantization makes it a lottery
 FAST_DN_STREAK = 8
+# 'fast' schedule, stall handover: where ||dD|| cannot settle below
+# conv_tol_d in the kernel phase, the streak never comes (the 117-atom
+# north star: ||dD|| wanders 2e-5 to 2e-4, a median of 4.5e-5, with dips
+# to 4e-7).  When the best ||dD|| of STALL_WINDOW or more cycles ago has
+# not fallen by STALL_RATIO in the STALL_WINDOW cycles since, and ||dD||
+# is under STALL_CEILING (below which the level shift leaves DIIS to
+# polish) but not under conv_tol_d, the phase has stalled: the candidate
+# goes to the f64 verify as the streak's does (the JAX package's stall
+# detector of its 'mixed' phase).  It hands over the lowest-||dD|| cycle's
+# density: at the north star that and the current one both verify in 40
+# cycles, and the lowest is the one nearest the fixed point by its residual.
+STALL_WINDOW = 8
+STALL_RATIO = 0.5
+STALL_CEILING = SHIFT_MIN_DNORM
+# The f64 verify's CDIIS bound on sum |c| (MAX_COEF_SUM elsewhere).  Its
+# Fock matrices carry no f32 noise, and at a small HOMO-LUMO gap (0.009 Eh
+# at the north star) the right extrapolations are large: the kernel
+# phase's bound turned them into plain Roothaan steps, which slosh.  The
+# verify also runs unshifted, with the shift controller unfed: from a
+# candidate within ~1e-3 of the fixed point its engage/release pairs only
+# reset CDIIS.  North star: no convergence in 143 verify cycles under the
+# kernel phase's bound and the shift, 91 cycles under this bound with the
+# shift, 40 without it.
+VERIFY_MAX_COEF_SUM = 1e4
 ADIIS_TO_CDIIS = 1e-2   # mixer='adiis+cdiis': ADIIS -> CDIIS handover
 MIX_TO_CDIIS = 3e-3     # mixer='mix+cdiis': damped mixing -> CDIIS handover
 
@@ -165,6 +189,16 @@ class _ShiftController:
             self._dn_best = float("inf")
             return self._fresh()
         return None
+
+
+def _stalled(dnorms: list, conv_tol_d: float) -> bool:
+    """The stall handover's test on the kernel phase's ||dD|| so far, the
+    current cycle's last (see STALL_* above)."""
+    if (len(dnorms) <= STALL_WINDOW
+            or not conv_tol_d <= dnorms[-1] < STALL_CEILING):
+        return False
+    return (min(dnorms[-STALL_WINDOW:])
+            > STALL_RATIO * min(dnorms[:-STALL_WINDOW]))
 
 
 def _damp(dm_new, dm_old, dnorm: float, dnorm_prev: float):
@@ -491,6 +525,11 @@ class SCFResult:
     # kernel, and the f64 verify cycles after them ('fast' only)
     fast_cycles: int = 0
     verify_cycles: int = 0
+    # 'fast' only: how the kernel phase ended ("rule", "streak" or
+    # "stall"; None without a handover), and its cycles after the one with
+    # the lowest ||dD||, up to the handover or the end
+    handover: str | None = None
+    stall_wait_cycles: int = 0
     # exact-exchange K builds of the call (K_BUILDS), energy_of_dm's
     # included: the f32 aux-major K ('fast', density-fitted kernel phase)
     # and the f64 K; 0 and 0 for a functional without exact exchange
@@ -523,15 +562,18 @@ def scf_host(
     scf_host (the result carries the converged cycle's energies).
 
     xc_impl='fast' (the in-core scf_host_staged(xc_impl='fast')): kernel-
-    phase cycles (scf_iteration_fast) until the convergence rule holds, or
-    ||dD|| has met it for FAST_DN_STREAK straight cycles.  An all-f32 fixed
-    point can be SPURIOUS for heavy elements (steep Fock scales push the
-    f32 rounding floor above the convergence window: H2Se -1.2e-4 and HBr
-    +2.3e-4 Eh in the JAX package), so the candidate is verified by f64
-    cycles from it, with a fresh CDIIS history and no ADIIS or mixing,
-    until the rule holds; the reported energy is one f64 energy_of_dm of
-    the returned density.  The cycle count and the callback span both
-    phases.
+    phase cycles (scf_iteration_fast) until the convergence rule holds,
+    ||dD|| has met it for FAST_DN_STREAK straight cycles, or ||dD|| has
+    stalled above it (_stalled; the lowest-||dD|| cycle's density is
+    handed over).  An all-f32 fixed point can be SPURIOUS for heavy
+    elements (steep Fock scales push the f32 rounding floor above the
+    convergence window: H2Se -1.2e-4 and HBr +2.3e-4 Eh in the JAX
+    package), so the candidate is verified by f64 cycles from it, with a
+    fresh CDIIS history under VERIFY_MAX_COEF_SUM and no ADIIS, mixing or
+    level shift, until the rule holds; the reported energy is one f64
+    energy_of_dm of the returned density.  The cycle count and the
+    callback span both phases; SCFResult.handover says how the kernel
+    phase ended.
 
     xc_impl='pallas' (scf_host_staged(xc_impl='pallas')): every cycle is a
     kernel-phase cycle with f64 J and K, to the plain convergence rule (no
@@ -575,13 +617,17 @@ def scf_host(
     k0 = dict(K_BUILDS)
     dn_streak = 0
     n_fast = 0
+    dn_hist = []     # the kernel phase's ||dD||, for the stall handover
+    best = None      # its lowest ||dD||: (||dD||, cycle, that density)
+    handover = None
     done = None    # the converged cycle and its density
     for cycle in range(max_cycle):
         with span("scf.cycle"):
             step = kernel_step if kernel_phase else scf_iteration
             dm_new, diis, en, dn_t = step(
                 sys, functional, dm, diis,
-                shift=0.0 if (use_adiis or use_mix) else shiftc.shift,
+                shift=(0.0 if use_adiis or use_mix or handover is not None
+                       else shiftc.shift),
                 smear_kt=smear_kt,
                 mixer="adiis" if use_adiis else "mix" if use_mix else "cdiis",
                 mix_alpha=mix_alpha)
@@ -593,9 +639,18 @@ def scf_host(
             if callback:
                 callback(cycle, eb, de, dnorm)
             converged = abs(de) < conv_tol_e and dnorm < conv_tol_d
-            if xc_impl == "fast" and kernel_phase and not converged:
+            if xc_impl == "fast" and kernel_phase:
+                dn_hist.append(dnorm)
+                if best is None or dnorm < best[0]:
+                    best = dnorm, n_fast - 1, dm_new
                 dn_streak = dn_streak + 1 if dnorm < conv_tol_d else 0
-                converged = dn_streak >= FAST_DN_STREAK
+                if converged:
+                    handover = "rule"
+                elif dn_streak >= FAST_DN_STREAK:
+                    handover = "streak"
+                elif _stalled(dn_hist, conv_tol_d):
+                    handover = "stall"
+                converged = handover is not None
             if converged and (not kernel_phase or xc_impl == "pallas"):
                 done = cycle, dm_new
                 break
@@ -609,16 +664,19 @@ def scf_host(
             mix_dn = dnorm if kernel_phase else dnorm / mix_alpha
             if use_mix and "+" in mixer and mix_dn < MIX_TO_CDIIS:
                 use_mix = False   # CDIIS takes over; its history is empty
-            if not use_adiis and not use_mix:
+            if not (use_adiis or use_mix or handover is not None):
                 fresh = shiftc.update(cycle, dnorm)
                 if fresh is not None:
                     diis = fresh
             if converged:
-                # candidate fixed point: verify it with f64 cycles and a
-                # fresh CDIIS history (the f32-floor history is noise)
-                kernel_phase = use_adiis = use_mix = False
-                diis = diis_init(nao, device=sys.device)
-                dm = dm_new
+                # candidate fixed point: verify it with f64 cycles, a fresh
+                # CDIIS history (the f32-floor history is noise) and no
+                # level shift (see VERIFY_MAX_COEF_SUM)
+                with span("scf.handover"):
+                    kernel_phase = use_adiis = use_mix = False
+                    diis = diis_init(nao, device=sys.device,
+                                     max_coef_sum=VERIFY_MAX_COEF_SUM)
+                    dm = best[2] if handover == "stall" else dm_new
             else:
                 dm = _damp(dm_new, dm, dnorm, dnorm_prev)
             dnorm_prev = dnorm
@@ -626,6 +684,8 @@ def scf_host(
             if (checkpoint_cb is not None and checkpoint_every > 0
                     and (cycle + 1) % checkpoint_every == 0):
                 checkpoint_cb(cycle + 1, dm.cpu().numpy(), e_old)
+    phase = dict(handover=handover, stall_wait_cycles=(
+        n_fast - 1 - best[1] if best is not None else 0))
     if done is not None:
         cycle, dm_new = done
         if xc_impl == "fast":
@@ -635,14 +695,14 @@ def scf_host(
                          shift_engaged_at=shiftc.engaged_at,
                          fast_cycles=n_fast,
                          verify_cycles=cycle + 1 - n_fast,
-                         smear_kt=smear_kt, **_k_builds_since(k0))
+                         smear_kt=smear_kt, **phase, **_k_builds_since(k0))
     eb = (energy_of_dm(sys, functional, dm) if max_cycle > 0
           else EnergyBreakdown(*(float("nan"),) * 5))
     return SCFResult(False, max_cycle, dm, eb, eb.e_tot,
                      level_shift=shiftc.shift,
                      shift_engaged_at=shiftc.engaged_at,
                      fast_cycles=n_fast, verify_cycles=max_cycle - n_fast,
-                     smear_kt=smear_kt, **_k_builds_since(k0))
+                     smear_kt=smear_kt, **phase, **_k_builds_since(k0))
 
 
 def _k_builds_since(k0: dict) -> dict:

@@ -97,6 +97,7 @@ def test_fast_schedule_matches_f64():
     assert ref.converged and res.converged
     assert res.fast_cycles > 0 and res.verify_cycles > 0
     assert res.n_iter == res.fast_cycles + res.verify_cycles
+    assert res.handover in ("rule", "streak") and ref.handover is None
     assert abs(res.e_tot - ref.e_tot) < 1e-7
 
 
